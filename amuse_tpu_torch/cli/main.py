@@ -1,0 +1,154 @@
+"""CLI of the PyTorch/CUDA port.
+
+    python -m amuse_tpu_torch.cli.main --fn infer_gesture [--cfg tiny.json]
+        [--set key=value ...] [--wav-dir DIR] [--device cuda|cpu]
+
+``infer_gesture`` turns every WAV under ``--wav-dir`` into SMPL-X npz files,
+one per 10 s window, under ``<out_dir>/<timestamp>/gesture/<stem>/rep<r>/seq_<i>/``
+(the JAX CLI's layout and per-WAV seed folding). The device defaults to
+``cuda`` and the run fails without a GPU. With no checkpoint configured the
+weights are random (seeded by ``cfg.seed``); loading released checkpoints
+(``AMUSE_TPU_CKPT``) and every other task are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+import zlib
+from pathlib import Path
+
+import torch
+
+TASK_NAMES = (
+    "blender_setup", "bvh2smplx_", "edit_gesture", "eval_gesture", "infer_gesture",
+    "prepare_data", "render_baselines", "render_gt", "train_audio", "train_embedder",
+    "train_gesture",
+)
+
+
+def _model_cfgs(cfg):
+    """Config dataclasses -> the port's model configs."""
+    from amuse_tpu_torch.core.motion import FEATS_6D, RAW_FEATS
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+
+    g, a = cfg.gesture, cfg.audio
+    if g.smplx_rep not in ("6D", "3D"):
+        raise ValueError(f"gesture.smplx_rep must be '6D' or '3D', got {g.smplx_rep!r}")
+    if g.skip_trans and g.smplx_rep != "3D":
+        raise ValueError("gesture.skip_trans requires gesture.smplx_rep='3D'")
+    if g.train_upper_body:
+        raise NotImplementedError(
+            "gesture.train_upper_body reproduces a broken reference path; "
+            "train with smplx_rep='3D' instead"
+        )
+    if a.gelu_tanh:
+        raise NotImplementedError("audio.gelu_tanh is not ported; the port runs exact GELU")
+    nfeats = (FEATS_6D if g.smplx_rep == "6D" else RAW_FEATS) - (3 if g.skip_trans else 0)
+    prior_cfg = PriorConfig(
+        nfeats=nfeats, latent_dim=g.latent_dim, ff_size=g.ff_size,
+        num_layers=g.num_layers, num_heads=g.num_heads, window=cfg.data.window_frames,
+    )
+    den_cfg = DenoiserConfig(
+        latent_dim=g.latent_dim, ff_size=g.ff_size, num_layers=g.num_layers,
+        num_heads=g.num_heads, cond_dim=g.cond_dim,
+    )
+    ast_cfg = ASTConfig(
+        input_tdim=a.target_length, input_fdim=a.num_mel_bins, embed_dim=a.ast_embed_dim,
+        depth=a.ast_depth, num_heads=a.ast_heads, feature_dim=a.ast_feature_dim,
+    )
+    return prior_cfg, den_cfg, ast_cfg
+
+
+def _make_pipeline(cfg, device):
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+
+    if os.environ.get("AMUSE_TPU_CKPT"):
+        raise NotImplementedError(
+            f"AMUSE_TPU_CKPT={os.environ['AMUSE_TPU_CKPT']}: checkpoint loading is "
+            "not yet ported to amuse_tpu_torch; unset it to run with random weights"
+        )
+    prior_cfg, den_cfg, ast_cfg = _model_cfgs(cfg)
+    print("[pipeline] no checkpoint configured; using random weights")
+    params = init_random_params(cfg.seed, prior_cfg, den_cfg, ast_cfg)
+    return GesturePipeline(
+        params, prior_cfg, den_cfg, ast_cfg,
+        dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+        num_inference_steps=cfg.gesture.num_inference_steps,
+        frame_based_feats=cfg.audio.frame_based_feats,
+        smplx_rep=cfg.gesture.smplx_rep,
+        skip_trans=cfg.gesture.skip_trans,
+        device=device,
+    )
+
+
+def _setup(cfg) -> Path:
+    from amuse_tpu_torch.cli.config import dump_config
+
+    run_dir = Path(cfg.out_dir) / time.strftime("%Y%m%d-%H%M%S")
+    if not cfg.debug:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        (run_dir / "experiment_args.json").write_text(dump_config(cfg))
+    return run_dir
+
+
+def task_infer_gesture(cfg, wav_dir: str = "viz_dump/test/speech", device: str = "cuda"):
+    """Custom WAV -> SMPL-X npz per 10 s window."""
+    from amuse_tpu_torch.audio.fbank import CHUNK_SAMPLES
+    from amuse_tpu_torch.audio.wavio import load_wav_resampled
+    from amuse_tpu_torch.data.actors import NAME_TO_GENDER
+    from amuse_tpu_torch.viz.export import export_windows
+
+    run_dir = _setup(cfg)
+    pipe = _make_pipeline(cfg, device)
+    wavs = sorted(Path(wav_dir).glob("*.wav"))
+    if not wavs:
+        print(f"[infer] no .wav files found under {wav_dir}")
+        return
+    reps = max(1, cfg.test.replication_times)
+    for wav in wavs:
+        try:
+            wave = load_wav_resampled(wav)
+        except (OSError, ValueError) as e:  # unreadable/corrupt file: skip, don't abort
+            print(f"[infer] {wav.name}: unreadable ({e}); skipped")
+            continue
+        if wave.shape[-1] < CHUNK_SAMPLES:
+            print(f"[infer] {wav.name}: shorter than one 10 s window; skipped")
+            continue
+        # BEAT-style stems carry the actor name (e.g. 2_scott_0_9_9)
+        subject = next((p for p in wav.stem.split("_") if p in NAME_TO_GENDER), "")
+        for rep in range(reps):
+            # fold the wav identity into the seed (crc32: stable across processes)
+            wav_seed = (cfg.seed + rep) * 1_000_003 + (zlib.crc32(wav.stem.encode()) & 0xFFFF)
+            result = pipe.infer_wav(wave, seed=wav_seed)
+            rep_dir = run_dir / "gesture" / wav.stem / f"rep{rep}"
+            paths = export_windows(rep_dir, result, subject=subject, stem=wav.stem)
+        print(f"[infer] {wav.name}: {len(paths)} windows x {reps} reps -> "
+              f"{run_dir / 'gesture' / wav.stem}")
+
+
+def main(argv=None):
+    from amuse_tpu_torch.cli.config import load_config, parse_cli_overrides
+    from amuse_tpu_torch.device import resolve_device
+
+    p = argparse.ArgumentParser(prog="amuse-tpu-torch")
+    p.add_argument("--fn", required=True, help=f"task, one of {', '.join(TASK_NAMES)}")
+    p.add_argument("--cfg", default=None, help="JSON config file")
+    p.add_argument("--set", action="append", default=[], help="override key=value")
+    p.add_argument("--wav-dir", default="viz_dump/test/speech")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+    if args.fn not in TASK_NAMES:
+        p.error(f"unknown --fn {args.fn!r}; tasks: {', '.join(TASK_NAMES)}")
+    if args.fn != "infer_gesture":
+        raise SystemExit(f"--fn {args.fn}: not yet ported to amuse_tpu_torch "
+                         "(only infer_gesture is)")
+    cfg = load_config(args.cfg, parse_cli_overrides(args.set))
+    task_infer_gesture(cfg, args.wav_dir, resolve_device(args.device))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,168 @@
+"""The plain versions of the port's two kernels against the JAX package (CPU).
+
+K1 (``amuse_tpu_torch.ops.attention.mha``) and K3
+(``amuse_tpu_torch.ops.denoiser_kernel.ddim_sample_fused``) take their plain
+PyTorch version for CPU tensors; these tests hold those against the JAX
+reference and against the JAX Pallas kernels run in interpret mode, mirroring
+tests/test_ops.py and tests/test_denoiser_kernel.py. The CUDA kernels
+themselves are held against the same plain versions on the card
+(tests/test_torch_port_gpu.py, chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from amuse_tpu.diffusion import ddim_sample as jddim_sample
+from amuse_tpu.diffusion import make_schedule as jmake_schedule
+from amuse_tpu.diffusion.schedulers import ddim_step as jddim_step
+from amuse_tpu.diffusion.schedulers import ddim_timesteps as jddim_timesteps
+from amuse_tpu.models.denoiser import Denoiser as JDenoiser
+from amuse_tpu.models.denoiser import DenoiserConfig as JDenoiserConfig
+from amuse_tpu.ops import denoiser_kernel as jdk
+from amuse_tpu.ops.attention import mha_pallas, mha_reference
+from amuse_tpu_torch import convert
+from amuse_tpu_torch.diffusion.schedulers import make_schedule
+from amuse_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+from amuse_tpu_torch.ops import attention as tatt
+from amuse_tpu_torch.ops import denoiser_kernel as tdk
+
+
+def _qkv(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+class TestAttentionPlain:
+    @pytest.mark.parametrize("shape", [(2, 2, 128, 64), (1, 2, 70, 32)])
+    def test_float32_matches_jax(self, shape):
+        """float32, aligned and ragged S: atol 2e-5 (the JAX kernel test's bound)."""
+        q, k, v = _qkv(sum(shape), shape)
+        mine = tatt.mha(*(torch.from_numpy(a) for a in (q, k, v))).numpy()
+        ref = np.asarray(mha_reference(*(jnp.asarray(a) for a in (q, k, v))))
+        pallas = np.asarray(mha_pallas(*(jnp.asarray(a) for a in (q, k, v)), interpret=True))
+        np.testing.assert_allclose(mine, ref, atol=2e-5)
+        np.testing.assert_allclose(mine, pallas, atol=2e-5)
+
+    def test_bf16_matches_jax(self):
+        """bfloat16: P is rounded to bf16 before P V on both sides; atol 3e-2
+        (tests/test_ops.py's bound for the bf16 kernel)."""
+        q, k, v = _qkv(3, (1, 1, 128, 64))
+        tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        mine = tatt.mha(tq, tk, tv)
+        assert mine.dtype == torch.bfloat16
+        ref = np.asarray(mha_reference(jq, jk, jv), np.float32)
+        pallas = np.asarray(mha_pallas(jq, jk, jv, interpret=True), np.float32)
+        np.testing.assert_allclose(mine.float().numpy(), ref, atol=3e-2)
+        np.testing.assert_allclose(mine.float().numpy(), pallas, atol=3e-2)
+
+    def test_strided_views_and_cpu_counter(self):
+        """The ViT block feeds q/k/v as strided views of the fused qkv output;
+        on CPU tensors the wrapper runs the plain version and launches nothing."""
+        before = tatt.mha.launches
+        qkv = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 70, 3, 2, 32))
+                               .astype(np.float32))
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out = tatt.mha(q, k, v)
+        ref = tatt.mha_reference(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
+        assert tatt.mha.launches == before == 0
+
+
+@pytest.fixture(scope="module")
+def flagship_denoiser():
+    """Flagship dims (9 layers, d 128, ff 512, 4 heads), flax init, carried to the port."""
+    cfg = JDenoiserConfig()
+    model = JDenoiser(cfg)
+    params = model.init(
+        jax.random.key(0), jnp.zeros((1, 1, 128)), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1, 256)), jnp.zeros((1, 256)), jnp.zeros((1, 256)),
+    )["params"]
+    port = Denoiser(DenoiserConfig()).eval()
+    port.load_state_dict(convert.denoiser_from_jax(params))
+    return cfg, model, params, port
+
+
+def _conds(seed, b):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, 256)).astype(np.float32) for _ in range(3)]
+
+
+class TestSamplerPlain:
+    def test_packing_matches_jax(self, flagship_denoiser):
+        _, _, params, port = flagship_denoiser
+        mine, ref = tdk.pack_denoiser(port), jdk.pack_denoiser(params)
+        assert mine.wq.shape == (9, 128, 128) and mine.w1.shape == (9, 128, 512)
+        assert mine.wskip.shape == (4, 256, 128) and mine.ln_scale.shape == (9, 2, 128)
+        for name in tdk.PackedDenoiser._fields:
+            np.testing.assert_array_equal(getattr(mine, name).numpy(),
+                                          np.asarray(getattr(ref, name)), err_msg=name)
+
+    def test_conditioning_matches_jax(self, flagship_denoiser):
+        cfg, _, params, port = flagship_denoiser
+        con, emo, sty = _conds(1, 2)
+        mine = tdk.precompute_conditioning(port, make_schedule(), *map(torch.from_numpy,
+                                                                       (con, emo, sty)))
+        ref = jdk.precompute_conditioning(params, cfg, jmake_schedule(), con, emo, sty)
+        for m, r, atol in zip(mine, ref, (1e-5, 1e-5, 1e-6, 0)):
+            np.testing.assert_allclose(m.numpy(), np.asarray(r), atol=atol)
+
+    def test_matches_fused_kernel_and_scan(self, flagship_denoiser):
+        """10 steps at batch 2 from the same initial latents: the plain sampler
+        against the Pallas sampler (interpret mode) and the XLA scan, atol
+        2e-3 / rtol 1e-2 as tests/test_denoiser_kernel.py (the Pallas kernel's
+        polynomial erf and padded tokens against exact erf)."""
+        cfg, model, params, port = flagship_denoiser
+        b, steps, key = 2, 10, jax.random.key(7)
+        con, emo, sty = _conds(0, b)
+        x0 = np.array(jax.random.normal(key, (b, 1, 128), jnp.float32))
+        pallas = jdk.make_fused_sampler(params, cfg, jmake_schedule(), steps, interpret=True)(
+            key, con, emo, sty)
+        scan = jddim_sample(
+            jmake_schedule(),
+            lambda lat, t: model.apply({"params": params}, lat, t, con, emo, sty),
+            key, (b, 1, 128), steps, initial_latents=jnp.asarray(x0))
+        before = tdk.ddim_sample_fused.launches
+        mine = tdk.ddim_sample_fused(port, make_schedule(), *map(torch.from_numpy, (con, emo, sty)),
+                                     num_steps=steps, initial_latents=torch.from_numpy(x0))
+        assert tdk.ddim_sample_fused.launches == before == 0
+        np.testing.assert_allclose(mine.numpy(), np.asarray(scan), atol=2e-3, rtol=1e-2)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(pallas), atol=2e-3, rtol=1e-2)
+
+    def test_single_step(self, flagship_denoiser):
+        """One step, tight: atol 2e-4 / rtol 1e-4 (tests/test_denoiser_kernel.py)."""
+        cfg, model, params, port = flagship_denoiser
+        con, emo, sty = _conds(1, 1)
+        key = jax.random.key(3)
+        x0 = jax.random.normal(key, (1, 1, 128), jnp.float32)
+        sched = jmake_schedule()
+        ts = jddim_timesteps(sched, 1)
+        eps = model.apply({"params": params}, x0, ts, con, emo, sty)
+        expected = jddim_step(sched, eps, ts[0], x0, 1)
+        mine = tdk.ddim_sample_fused(port, make_schedule(), *map(torch.from_numpy, (con, emo, sty)),
+                                     num_steps=1, initial_latents=torch.from_numpy(np.array(x0)))
+        np.testing.assert_allclose(mine.numpy(), np.asarray(expected), atol=2e-4, rtol=1e-4)
+
+    def test_missing_streams_and_generator(self, flagship_denoiser):
+        """emo/sty None run the same path (3 or 4 real tokens); the plain
+        sampler equals the JAX scan over the same initial latents."""
+        cfg, model, params, port = flagship_denoiser
+        con, _, sty = _conds(2, 2)
+        x0 = np.random.default_rng(5).normal(size=(2, 1, 128)).astype(np.float32)
+        ref = jddim_sample(
+            jmake_schedule(),
+            lambda lat, t: model.apply({"params": params}, lat, t, con, None, sty),
+            None, (2, 1, 128), 4, initial_latents=jnp.asarray(x0))
+        mine = tdk.ddim_sample_fused(port, make_schedule(), torch.from_numpy(con), None,
+                                     torch.from_numpy(sty), num_steps=4,
+                                     initial_latents=torch.from_numpy(x0))
+        np.testing.assert_allclose(mine.numpy(), np.asarray(ref), atol=2e-4, rtol=1e-4)
+        drawn = tdk.ddim_sample_fused(port, make_schedule(), torch.from_numpy(con), num_steps=2,
+                                      generator=torch.Generator().manual_seed(0))
+        assert drawn.shape == (2, 1, 128) and torch.isfinite(drawn).all()
+        with pytest.raises(ValueError):
+            tdk.ddim_sample_fused(port, make_schedule(), torch.from_numpy(con), num_steps=2,
+                                  initial_latents=torch.zeros(3, 1, 128))
