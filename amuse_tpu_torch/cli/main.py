@@ -1,14 +1,22 @@
 """CLI of the PyTorch/CUDA port.
 
-    python -m amuse_tpu_torch.cli.main --fn infer_gesture [--cfg tiny.json]
+    python -m amuse_tpu_torch.cli.main --fn {infer_gesture,train_audio} [--cfg tiny.json]
         [--set key=value ...] [--wav-dir DIR] [--device cuda|cpu]
 
 ``infer_gesture`` turns every WAV under ``--wav-dir`` into SMPL-X npz files,
 one per 10 s window, under ``<out_dir>/<timestamp>/gesture/<stem>/rep<r>/seq_<i>/``
-(the JAX CLI's layout and per-WAV seed folding). The device defaults to
-``cuda`` and the run fails without a GPU. With no checkpoint configured the
-weights are random (seeded by ``cfg.seed``); loading released checkpoints
-(``AMUSE_TPU_CKPT``) and every other task are not ported yet.
+(the JAX CLI's layout and per-WAV seed folding). With no checkpoint
+configured the weights are random (seeded by ``cfg.seed``).
+
+``train_audio`` trains the stage-1 AST disentangler on the quad dataset at
+``data.stage1_dataset`` (the npz ``prepare_data`` writes), one device, and
+writes ``metrics.jsonl`` and a checkpoint per epoch under
+``<out_dir>/<timestamp>/`` unless ``debug``; ``resume=<checkpoint dir>``
+continues a run.
+
+The device defaults to ``cuda`` and the run fails without a GPU. Loading
+released checkpoints (``AMUSE_TPU_CKPT``) and every other task are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -95,6 +103,90 @@ def _setup(cfg) -> Path:
     return run_dir
 
 
+def task_train_audio(cfg, device: torch.device):
+    """Stage-1 AST disentangler training (reference: trainer.train_dtw_ast)."""
+    import dataclasses
+
+    import numpy as np
+
+    from amuse_tpu_torch.data import stage1
+    from amuse_tpu_torch.eval.classification import epoch_stats
+    from amuse_tpu_torch.train import audio as ta
+    from amuse_tpu_torch.train.checkpoint import CheckpointManager, restore_train_state
+    from amuse_tpu_torch.utils.logging import RunLogger
+
+    run_dir = _setup(cfg)
+    logger = RunLogger(None if cfg.debug else run_dir)
+    a = cfg.audio
+    tcfg = ta.AudioTrainConfig(
+        learning_rate=a.learning_rate, weight_decay=a.weight_decay, beta1=a.beta1,
+        beta2=a.beta2, lr_decay_start_epoch=a.lr_decay_start_epoch,
+        lr_decay_gamma=a.lr_decay_gamma, epochs=a.epochs,
+        frame_based_feats=a.frame_based_feats, freq_mask=a.freq_mask,
+        time_mask=a.time_mask, noise_aug=a.noise,
+    )
+    train, val = stage1.load_dataset(Path(cfg.data.stage1_dataset))
+    # the same AST config the inference pipeline builds from cfg
+    _, _, ast_cfg = _model_cfgs(cfg)
+    bsz = max(1, a.batch_size)
+    n_train = int(train["emo_id"].shape[0])
+    if n_train == 0:
+        raise RuntimeError("stage-1 dataset has no training quads - nothing would train")
+    if n_train < bsz:  # else an epoch would take no step and checkpoint random weights
+        print(f"[AST-T] batch {bsz} > dataset {n_train}; clamped to {n_train}")
+        bsz = n_train
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if ta.remat_needed(ast_cfg, bsz, dtype, device):
+        ast_cfg = dataclasses.replace(ast_cfg, remat=True)
+        print(f"[AST-T] {bsz} quads per step: remat enabled (without it a step would take "
+              f"~{ta.step_peak_bytes(ast_cfg, bsz, dtype) / 2**30:.1f} GiB, over 90% of the card)")
+    state = ta.init_state(cfg.seed, tcfg, dtype, ast_cfg, device)
+    start_epoch = 0
+    if cfg.resume:
+        state, start_epoch = restore_train_state(cfg.resume, state, "AST-T")
+    ckpt = None if cfg.debug else CheckpointManager(run_dir / "checkpoints")
+    step_fn, set_lr = ta.make_train_step(tcfg)
+
+    @torch.no_grad()
+    def validate() -> dict:
+        """Emotion/speaker stats over the val quads (AST_EVP.py:331-430)."""
+        n_val = int(val["emo_id"].shape[0])
+        if n_val == 0:
+            return {}
+        state.model.eval()
+        emo_logits, sty_logits, emo_lab, sty_lab = [], [], [], []
+        for batch in stage1.batches(val, min(bsz, n_val)):
+            fb = torch.as_tensor(batch["fbanks"]).to(device)
+            enc = state.model.encode(fb.reshape(-1, *fb.shape[2:]), tcfg.frame_based_feats)
+            emo_logits.append(enc["emo"]["logits"].cpu())
+            sty_logits.append(enc["sty"]["logits"].cpu())
+            # (B, 4, ...) flattens batch-major: labels repeat 4x per sample
+            emo_lab.append(np.repeat(batch["emo_id"], 4))
+            sty_lab.append(np.stack([batch["a1_id"], batch["a1_id"], batch["a2_id"],
+                                     batch["a2_id"]], axis=1).reshape(-1))
+        stats = epoch_stats(torch.cat(emo_logits), torch.from_numpy(np.concatenate(emo_lab)),
+                            torch.cat(sty_logits), torch.from_numpy(np.concatenate(sty_lab)))
+        return {"val_emo_acc": stats["emo_stats"]["acc"],
+                "val_sty_acc": stats["subject_stats"]["acc"],
+                "val_emo_f1": stats["emo_stats"]["f1_micro"]}
+
+    for epoch in range(start_epoch, tcfg.epochs):
+        set_lr(state, epoch)
+        t0, logs = time.time(), {}
+        # epoch-keyed shuffle: a resumed run sees the batch order of an unbroken one
+        rng = np.random.default_rng([cfg.seed, epoch])
+        for i, batch in enumerate(stage1.batches(train, bsz, rng)):
+            gen = ta.step_generator(cfg.seed, epoch, i, device)
+            logs = step_fn(state, ta.batch_to_device(batch, device), gen)
+        metrics = {f"train_{k}": float(v) for k, v in logs.items()}
+        metrics.update(validate())
+        logger.log(epoch, metrics)
+        print(f"[AST-T] epoch {epoch + 1}/{tcfg.epochs} ({time.time() - t0:.1f}s): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+        if ckpt:  # full state: parameters, Adam moments, step
+            ckpt.save(epoch + 1, state.state_dict(), metrics)
+
+
 def task_infer_gesture(cfg, wav_dir: str = "viz_dump/test/speech", device: str = "cuda"):
     """Custom WAV -> SMPL-X npz per 10 s window."""
     from amuse_tpu_torch.audio.fbank import CHUNK_SAMPLES
@@ -143,11 +235,15 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.fn not in TASK_NAMES:
         p.error(f"unknown --fn {args.fn!r}; tasks: {', '.join(TASK_NAMES)}")
-    if args.fn != "infer_gesture":
+    if args.fn not in ("infer_gesture", "train_audio"):
         raise SystemExit(f"--fn {args.fn}: not yet ported to amuse_tpu_torch "
-                         "(only infer_gesture is)")
+                         "(infer_gesture and train_audio are)")
     cfg = load_config(args.cfg, parse_cli_overrides(args.set))
-    task_infer_gesture(cfg, args.wav_dir, resolve_device(args.device))
+    device = resolve_device(args.device)
+    if args.fn == "train_audio":
+        task_train_audio(cfg, device)
+    else:
+        task_infer_gesture(cfg, args.wav_dir, device)
 
 
 if __name__ == "__main__":

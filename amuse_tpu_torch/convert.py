@@ -11,6 +11,9 @@ weights (out, in), separate q/k/v projections become the packed
 (E, 1, 16, 16) conv weight, and positional tables gain the reference's
 (max_len, 1, d) layout. Both AST layouts of the JAX pipeline are accepted:
 ``{emo_enc, sty_enc, con_enc}`` (the stage-1 model) and ``{con, emo, sty}``.
+``disentangler_from_jax`` maps the whole stage-1 ``ASTDisentangler`` tree
+(encoders with their label head, fusion, fusion_ablation, decoder). The maps
+are linear, so they carry gradient trees too.
 """
 
 from __future__ import annotations
@@ -96,17 +99,24 @@ def denoiser_from_jax(p: Mapping) -> dict:
 
 
 def ast_encoder_from_jax(p: Mapping, prefix: str = "") -> dict:
-    """flax ASTEncoder params -> ASTEncoder state dict (feature path; label heads dropped)."""
+    """flax ASTEncoder params -> ASTEncoder state dict, with whichever label
+    head the flax tree holds (``featbased_*`` -> ``mlp_head_featbased``,
+    ``mlp_*`` -> ``mlp_head``)."""
     pre = f"{prefix}." if prefix else ""
+    out = {}
+    for flax_name, head in (("featbased", "mlp_head_featbased"), ("mlp", "mlp_head")):
+        if f"{flax_name}_ln" in p:
+            _layernorm(p[f"{flax_name}_ln"], out, f"{pre}{head}.0")
+            _linear(p[f"{flax_name}_fc"], out, f"{pre}{head}.1")
     kernel = np.asarray(p["patch_proj"]["kernel"])  # (patch*patch, E)
     patch = math.isqrt(kernel.shape[0])
-    out = {
+    out.update({
         f"{pre}v.patch_embed.proj.weight": _t(kernel.T.reshape(kernel.shape[1], 1, patch, patch)),
         f"{pre}v.patch_embed.proj.bias": _t(p["patch_proj"]["bias"]),
         f"{pre}v.cls_token": _t(p["cls_token"]),
         f"{pre}v.dist_token": _t(p["dist_token"]),
         f"{pre}v.pos_embed": _t(p["pos_embed"]),
-    }
+    })
     _layernorm(p["norm"], out, f"{pre}v.norm")
     _layernorm(p["feature_ln"], out, f"{pre}feature_head.0")
     _linear(p["feature_fc"], out, f"{pre}feature_head.1")
@@ -119,6 +129,33 @@ def ast_encoder_from_jax(p: Mapping, prefix: str = "") -> dict:
         _layernorm(b["norm2"], out, f"{bp}.norm2")
         _linear(b["mlp_fc1"], out, f"{bp}.mlp.fc1")
         _linear(b["mlp_fc2"], out, f"{bp}.mlp.fc2")
+    return out
+
+
+def _layer_stack(p: Mapping, out: dict, prefix: str) -> None:
+    """flax FusionBlock / DecoderBlock layers + norm -> ``<prefix>.layers.{i}``, ``.norm``."""
+    for i in range(sum(1 for k in p if k.startswith("layer_"))):
+        _layer(p[f"layer_{i}"], out, f"{prefix}.layers.{i}")
+    _layernorm(p["norm"], out, f"{prefix}.norm")
+
+
+def disentangler_from_jax(tree: Mapping) -> dict:
+    """flax ``ASTDisentangler`` params -> the port's ``ASTDisentangler`` state
+    dict (reference ``AST_EVP`` keys).
+
+    flax holds only the label head of the ``frame_based_feats`` branch traced
+    at init; that head is mapped and the other one is absent from the result
+    (load with ``strict=False``).
+    """
+    out = {}
+    for name in ("emo", "sty", "con"):
+        out.update(ast_encoder_from_jax(tree[f"{name}_enc"], f"{name}_enc"))
+    for block in ("fusion", "fusion_ablation"):
+        _layer_stack(tree[block], out, block)
+        _linear(tree[block]["fc"], out, f"{block}.fc")
+    _layer_stack(tree["decoder"], out, "decode")
+    _linear(tree["decoder"]["proj1"], out, "decode.projection.0")
+    _linear(tree["decoder"]["proj2"], out, "decode.projection.2")
     return out
 
 

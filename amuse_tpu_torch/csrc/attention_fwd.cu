@@ -6,6 +6,13 @@
 // with the softmax in float32, dot inputs in the storage type (bf16 or f32)
 // accumulated in float32, P cast to V's type before P V, and the row
 // division applied to the output row instead of the (S, S) plane.
+// Optionally (lse != nullptr) it also writes each row's float32 log-sum-exp
+// of the scaled scores, (B, H, S) contiguous, which the backward kernel K2
+// (attention_bwd.cu) reads to rebuild P without a second softmax pass. The
+// LSE store is a template switch (WITH_LSE), chosen at launch by whether lse
+// is null: the inference path (nullptr) runs an instantiation with no LSE
+// code in it, so its registers and occupancy are those of the kernel
+// without the output.
 //
 // Bound on the H100: compute. 4 S^2 D operations per (batch, head): at the
 // AST shape (S 1214, D 64, 12 heads x 3 encoders per window) that is about
@@ -44,11 +51,11 @@ struct Strides {
 };
 
 // float32 path: one query row per thread.
-template <int D>
+template <int D, bool WITH_LSE>
 __global__ void __launch_bounds__(BQ)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int H, int S, Strides qs,
-                Strides ks, Strides vs, Strides os, float scale) {
+                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                int H, int S, Strides qs, Strides ks, Strides vs, Strides os, float scale) {
   __shared__ float Ks[BK][D];
   __shared__ float Vs[BK][D];
 
@@ -109,6 +116,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = o + b * os.b + h * os.h + (long long)row * os.s;
 #pragma unroll
     for (int c = 0; c < D; ++c) op[c] = acc[c] / l;
+    if constexpr (WITH_LSE) lse[(long long)bh * S + row] = m + logf(l);
   }
 }
 
@@ -139,12 +147,12 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // (row g | g+8, col 2t..2t+1 | 8+2t..), B regs (k 2t..2t+1 | 8+2t.., col g),
 // C (row g | g+8, col 2t..2t+1). The S accumulators of two adjacent 8-key
 // tiles are therefore exactly the A operand of P V.
-template <int D>
+template <int D, bool WITH_LSE>
 __global__ void __launch_bounds__(MMA_THREADS)
 attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    int H, int S, Strides qs, Strides ks, Strides vs, Strides os,
-                    float scale) {
+                    float* __restrict__ lse, int H, int S, Strides qs, Strides ks, Strides vs,
+                    Strides os, float scale) {
   constexpr int LD = D + 8;          // padded row: conflict-free fragment loads
   constexpr int KSTEPS = D / 16;     // k-steps of Q K^T
   constexpr int NT_S = MMA_BK / 8;   // 8-key tiles of S
@@ -279,25 +287,33 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_hi * os.s + c) =
           __floats2bfloat162_rn(oacc[nt][2] / l_hi, oacc[nt][3] / l_hi);
   }
+  if constexpr (WITH_LSE) {
+    if (t == 0 && r_lo < S) lse[(long long)bh * S + r_lo] = m_lo + logf(l_lo);
+    if (t == 0 && r_hi < S) lse[(long long)bh * S + r_hi] = m_hi + logf(l_hi);
+  }
 }
 
 template <int D>
-void launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                Strides qs, Strides ks, Strides vs, Strides os, float scale, cudaStream_t st) {
+void launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                int S, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                cudaStream_t st) {
   const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H);
-  attn_fwd_mma_kernel<D><<<grid, MMA_THREADS, 0, st>>>(
+  const auto kernel = lse ? attn_fwd_mma_kernel<D, true> : attn_fwd_mma_kernel<D, false>;
+  kernel<<<grid, MMA_THREADS, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, S, qs, ks, vs,
-      os, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, S, qs, ks,
+      vs, os, scale);
 }
 
 template <int D>
-void launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                Strides qs, Strides ks, Strides vs, Strides os, float scale, cudaStream_t st) {
+void launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                int S, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                cudaStream_t st) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  attn_fwd_kernel<D><<<grid, BQ, 0, st>>>(
+  const auto kernel = lse ? attn_fwd_kernel<D, true> : attn_fwd_kernel<D, false>;
+  kernel<<<grid, BQ, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, S, qs, ks, vs, os, scale);
+      static_cast<float*>(o), lse, H, S, qs, ks, vs, os, scale);
 }
 
 }  // namespace
@@ -306,10 +322,11 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the head dim
 // must be contiguous; for bfloat16 the pointers must be 16-byte aligned and
-// the strides multiples of 8 (checked by the Python wrapper). Returns
-// cudaGetLastError() after the launch.
-int attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-                  int H, int S, int D, long long q_sb, long long q_sh, long long q_ss,
+// the strides multiples of 8 (checked by the Python wrapper). lse is
+// nullptr or a float32 (B, H, S) contiguous buffer for the row log-sum-exp.
+// Returns cudaGetLastError() after the launch.
+int attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+                  int B, int H, int S, int D, long long q_sb, long long q_sh, long long q_ss,
                   long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                   long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                   long long o_ss, float scale, void* stream) {
@@ -317,14 +334,15 @@ int attention_fwd(const void* q, const void* k, const void* v, void* o, int dtyp
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && D == 64) {
-    launch_f32<64>(q, k, v, o, B, H, S, qs, ks, vs, os, scale, st);
+    launch_f32<64>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
   } else if (dtype == 0 && D == 32) {
-    launch_f32<32>(q, k, v, o, B, H, S, qs, ks, vs, os, scale, st);
+    launch_f32<32>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
   } else if (dtype == 1 && D == 64) {
-    launch_mma<64>(q, k, v, o, B, H, S, qs, ks, vs, os, scale, st);
+    launch_mma<64>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
   } else if (dtype == 1 && D == 32) {
-    launch_mma<32>(q, k, v, o, B, H, S, qs, ks, vs, os, scale, st);
+    launch_mma<32>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -8,6 +8,11 @@ embeddings. Batch-first ``(B, T, D)``. Parameter names are the reference
 AMUSE state-dict keys (DETR-style ``cross_attention.py``), so a reference
 state dict loads with ``load_state_dict``. Attention here is plain torch
 ops: its JAX counterpart is XLA einsum, not a Pallas kernel.
+
+``EncoderLayer(dropout=p)`` drops, in training mode only, the attention
+weights, the FFN activation and both residual branches, as the JAX layer
+does; the masks come from the ``torch.Generator`` passed to ``forward``.
+With the default ``dropout=0.0`` (inference) nothing is drawn.
 """
 
 from __future__ import annotations
@@ -22,6 +27,16 @@ from torch import nn
 _TORCH_LN_EPS = 1e-5
 
 
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): keep with probability 1 - p,
+    scale kept values by 1 / (1 - p); the identity unless training and p > 0."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _activation(name: str):
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="none")  # exact erf form
@@ -34,12 +49,14 @@ class MultiHeadAttention(nn.Module):
     """``nn.MultiheadAttention``-keyed attention, batch-first.
 
     ``key_padding_mask`` is a (B, Tk) boolean keep-mask (True = attend), the
-    JAX package's convention.
+    JAX package's convention. ``dropout`` applies to the attention weights
+    in training mode.
     """
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.num_heads = d_model, num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -51,6 +68,7 @@ class MultiHeadAttention(nn.Module):
         key: torch.Tensor,
         value: torch.Tensor,
         key_padding_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         d, h = self.d_model, self.num_heads
         hd = d // h
@@ -68,13 +86,15 @@ class MultiHeadAttention(nn.Module):
             neg = torch.finfo(torch.float32).min
             scores = scores.masked_fill(~key_padding_mask[:, None, None, :], neg)
         attn = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        attn = dropout(attn, self.dropout, self.training, generator)
         out = (attn @ v).transpose(-3, -2).reshape(query.shape[:-1] + (d,))
         return self.out_proj(out)
 
 
 def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
                  activation: str = "gelu") -> torch.Tensor:
-    """Linear -> activation -> Linear (the layers' FFN; dropout is inference-off)."""
+    """Linear -> activation -> Linear: the decoder layer's FFN (the encoder
+    layer runs the same with its dropouts)."""
     return linear2(_activation(activation)(linear1(x)))
 
 
@@ -82,9 +102,11 @@ class EncoderLayer(nn.Module):
     """Post-norm (default) or pre-norm transformer encoder layer."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
-                 activation: str = "gelu", normalize_before: bool = False):
+                 activation: str = "gelu", normalize_before: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=_TORCH_LN_EPS)
@@ -92,16 +114,22 @@ class EncoderLayer(nn.Module):
         self.activation = activation
         self.normalize_before = normalize_before
 
-    def _ffn(self, x):
-        return feed_forward(x, self.linear1, self.linear2, self.activation)
+    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        def drop(y):
+            return dropout(y, self.dropout, self.training, generator)
 
-    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
+        def attn(y):
+            return drop(self.self_attn(y, y, y, key_padding_mask, generator))
+
+        def ffn(y):
+            return drop(self.linear2(drop(_activation(self.activation)(self.linear1(y)))))
+
         if self.normalize_before:
-            h = self.norm1(x)
-            x = x + self.self_attn(h, h, h, key_padding_mask)
-            return x + self._ffn(self.norm2(x))
-        x = self.norm1(x + self.self_attn(x, x, x, key_padding_mask))
-        return self.norm2(x + self._ffn(x))
+            x = x + attn(self.norm1(x))
+            return x + ffn(self.norm2(x))
+        x = self.norm1(x + attn(x))
+        return self.norm2(x + ffn(x))
 
 
 class DecoderLayer(nn.Module):

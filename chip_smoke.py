@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test and measurement of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout; needs one CUDA card
+    python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
+    python3 chip_smoke.py --only-k1  # build, then the K1 phase alone
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
-the shapes the main path gives it, drives the main path
-(``GesturePipeline.wav_to_motion`` at the flagship widths with random
-weights, then the ``infer_gesture`` CLI) and checks that it went through the
-kernels by their launch counters. Each phase prints one JSON line as it
-ends; after the ``{"kernels": [...]}`` line and the card's
-``name, power.limit`` line, the last line is
+the shapes the main paths give it, drives the two main paths and checks by
+the kernels' launch counters that each went through its kernels:
+
+  * inference: ``GesturePipeline.wav_to_motion`` at the flagship widths with
+    random weights, then the ``infer_gesture`` CLI (K1, K3);
+  * stage-1 training: the ``train_audio`` step at small widths against the
+    CPU plain path, at the flagship widths (timed, traced), then the
+    ``train_audio`` CLI with a checkpoint and a resume (K1, K2).
+
+Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
+line and the card's ``name, power.limit`` line, the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero. Without CUDA, or outside a checkout,
 it exits non-zero before printing any result. Imports no JAX. Logs go to
@@ -19,9 +25,11 @@ it exits non-zero before printing any result. Imports no JAX. Logs go to
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -42,6 +50,24 @@ K1_TOL_F32 = 2e-5
 K3_TOL = 2e-3  # 50 float32 steps (tests/test_denoiser_kernel.py:47)
 K3_TOL_STEP = 2e-4  # one step (tests/test_denoiser_kernel.py:68)
 PIPE_TOL = 1e-3  # small-width pipeline, kernels vs plain, float32
+# K2: max |kernel - plain| <= rel * max |plain|, per gradient. float32:
+# summation order and Delta = rowsum(dO * O) in place of rowsum(dP * P);
+# bf16: one or two bf16 ulps of the outputs (dS rounded to bf16 from float32
+# values that differ in the last bits, O rounded to bf16 inside Delta).
+K2_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_LOSS_RTOL = 1e-4  # small-width train step, card vs CPU, float32
+TRAIN_GRAD_REL = 1e-3  # per parameter, of its largest gradient entry
+TRAIN_LR = 1e-4  # parameters after two steps: atol TRAIN_LR / 10
+# small-width train step in bf16, card vs CPU: the loss, and all gradients
+# of step 1 together (relative L2); about twice the readings on an H100
+# (2.1e-4 and 5.5e-3, where bf16 itself moves the CPU's loss by 6.3e-4 and
+# its gradients by 6.1e-3 from float32, printed beside them). Two bf16
+# programs that round at different points (K1/K2 against autograd through
+# the plain attention, cuBLAS against CPU GEMMs) differ by bf16 noise.
+TRAIN_BF16_LOSS_RTOL = 5e-4
+TRAIN_BF16_GRAD_REL = 1e-2
+MEM_EST_RTOL = 0.1  # train_audio.step_peak_bytes against the measured peaks
+SMALL_AST = {"embed_dim": 64, "depth": 2, "num_heads": 2, "feature_dim": 24}
 
 
 def emit(obj) -> None:
@@ -80,6 +106,18 @@ def smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def _kernel_name(ptxas_line: str) -> str:
+    """'attn_fwd_mma_kernel<64,1>' from ptxas's line naming a mangled kernel."""
+    sym = ptxas_line.split("'")[1]
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", sym)
+    if not m:
+        return sym
+    start = m.end() + int(m.group(1))
+    args = (re.findall(r"L[a-z]+(\d+)E", sym[start:sym.find("EE", start) + 1])
+            or [sym[start + 1:sym.find("E", start)]])  # a type argument, mangled
+    return f"{sym[m.end():start]}<{','.join(args)}>"
+
+
 def phase_build():
     from amuse_tpu_torch.ops import _build
 
@@ -89,7 +127,12 @@ def phase_build():
     OUT.mkdir(parents=True, exist_ok=True)
     log = "\n".join(f"== {name}.cu ({r['seconds']:.1f} s)\n{r['log']}" for name, r in results.items())
     (OUT / "build.log").write_text(log)
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas, kernel = [], "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = _kernel_name(ln)
+        elif "registers" in ln:
+            ptxas.append(f"{kernel}: {ln.split(':', 1)[1].strip()}")
     emit({"phase": "build", "seconds": seconds,
           "sources": {n: r["seconds"] for n, r in results.items()}, "ptxas": ptxas})
 
@@ -331,7 +374,362 @@ def phase_cli():
     emit({"phase": "cli_infer_gesture", "seconds": seconds, "seq_files": len(seqs)})
 
 
-def main() -> int:
+def phase_attention_k2(rng_seed: int = 0) -> dict:
+    """K2 through mha_train's backward, on strided views of a fused qkv
+    tensor (as vit_block feeds it), against mha_bwd_reference and against
+    autograd through mha_reference: float32 at ragged S = 70 (D 32 and 64),
+    bf16 at the stage-1 shape (3 encoders x 4 fbanks, 12 heads, 1214, 64)."""
+    import torch
+    import torch.nn.functional as F
+
+    from amuse_tpu_torch.ops.attention import (_launch_fwd, mha_bwd, mha_bwd_reference,
+                                               mha_reference, mha_train)
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    cases = []
+    for dtype, b, h, s, d in ((torch.float32, 1, 2, 70, 32), (torch.float32, 2, 2, 70, 64),
+                              (torch.bfloat16, 12, 12, 1214, 64)):
+        name = str(dtype).replace("torch.", "")
+        qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(dtype)
+        do = torch.randn((b, h, s, d), generator=g, device="cuda").to(dtype)
+        leaf = qkv.clone().requires_grad_()
+        mha_train(leaf).backward(do)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        plain = mha_bwd_reference(q, k, v, do)
+        ref_leaf = qkv.clone().requires_grad_()
+        mha_reference(*(ref_leaf[:, :, i].transpose(1, 2) for i in range(3))).backward(do)
+        torch.cuda.synchronize()
+        err, tol = 0.0, math.inf
+        for i in range(3):
+            got = leaf.grad[:, :, i].transpose(1, 2)
+            check(torch.isfinite(got.float()).all().item(),
+                  f"K2 output not finite at {(b, h, s, d)}")
+            for ref in (plain[i], ref_leaf.grad[:, :, i].transpose(1, 2)):
+                e, t = max_err(got, ref), K2_REL[name] * ref.float().abs().max().item()
+                check(e <= t, f"K2 disagrees with its plain version at {(b, h, s, d)} {name}, "
+                              f"gradient {'qkv'[i]}: {e} > {t}")
+                err, tol = max(err, e), min(tol, t)
+        case = {"shape": [b, h, s, d], "dtype": name, "max_abs_err": err, "tolerance": tol,
+                "tolerance_rel": K2_REL[name]}
+        if s == 1214:
+            out, lse = _launch_fwd(q, k, v, with_lse=True)
+            flops = 10.0 * b * h * s * s * d
+            nbytes = 8.0 * b * h * s * d * q.element_size() + 4.0 * b * h * s  # + lse
+            lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+            case.update(
+                ms=cuda_ms(lambda: mha_bwd(q, k, v, out, do, lse)),
+                plain_ms=cuda_ms(lambda: mha_bwd_reference(q, k, v, do), iters=3, warmup=1),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), do,
+                                                               retain_graph=True)),
+                bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+                bound_by="operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES
+                else "bytes",
+            )
+        cases.append(case)
+    emit({"phase": "attention_k2", "cases": cases})
+    return cases[-1]
+
+
+def _train_batch(b: int, t: int, f: int, seed: int, device) -> dict:
+    import numpy as np
+
+    from amuse_tpu_torch.train.audio import batch_to_device
+
+    rng = np.random.default_rng(seed)
+    return batch_to_device({"fbanks": rng.normal(size=(b, 4, t, f)).astype(np.float32),
+                            "emo_id": rng.integers(0, 8, b), "a1_id": rng.integers(0, 30, b),
+                            "a2_id": rng.integers(0, 30, b)}, device)
+
+
+def _launch_counts() -> dict:
+    from amuse_tpu_torch.ops import attention
+
+    return {"attention_fwd": attention.mha.launches, "attention_bwd": attention.mha_bwd.launches}
+
+
+def _reset_counts() -> None:
+    from amuse_tpu_torch.ops import attention, denoiser_kernel
+
+    attention.mha.launches = attention.mha_bwd.launches = 0
+    denoiser_kernel.ddim_sample_fused.launches = 0
+
+
+def _small_steps(dtype, device: str) -> tuple:
+    """Two stage-1 steps at the small widths of ``phase_train_small_vs_cpu``
+    -> (losses, gradients per step, parameters after, launch counts)."""
+    import torch
+
+    from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
+    from amuse_tpu_torch.train import audio as ta
+
+    cfg = ta.AudioTrainConfig(learning_rate=TRAIN_LR)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        model = ASTDisentangler(ASTConfig(**SMALL_AST), fusion_dim=64, dtype=dtype).to(device)
+    state = ta.AudioTrainState(model, ta.make_optimizer(model, cfg))
+    step, _ = ta.make_train_step(cfg)
+    batch = _train_batch(1, 1024, 128, 12, torch.device(device))
+    losses, grads = [], []
+    _reset_counts()
+    for _ in range(2):
+        losses.append(step(state, batch, None, stochastic=False)["total"].item())
+        grads.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    return (losses, grads, {n: p.detach().cpu() for n, p in model.named_parameters()},
+            _launch_counts())
+
+
+def _grad_rel_l2(got: dict, want: dict) -> float:
+    """|got - want| / |want| over all gradients together (L2)."""
+    num = sum(((got[n] - g) ** 2).sum().item() for n, g in want.items())
+    return (num / sum((g ** 2).sum().item() for g in want.values())) ** 0.5
+
+
+def phase_train_small_vs_cpu():
+    """Two stage-1 train steps at small widths (AST embed 64, 2 heads of 32,
+    depth 2, the real 1024x128 fbank, fusion width 64; dropout and
+    augmentation off): the card (K1, K2, fused Adam) against the CPU plain
+    path from the same weights and batch, in float32 (loss per step, every
+    gradient of step 1, the parameters after step 2) and in bf16 over
+    float32 parameters, the main path's precision (loss per step, the
+    gradients of step 1)."""
+    import torch
+
+    runs = {(dt, dev): _small_steps(dt, dev) for dt in (torch.float32, torch.bfloat16)
+            for dev in ("cpu", "cuda")}
+    (l_cpu, g_cpu, p_cpu, _), (l_gpu, g_gpu, p_gpu, _) = (
+        runs[torch.float32, "cpu"], runs[torch.float32, "cuda"])
+    want = {"attention_fwd": 2 * SMALL_AST["depth"], "attention_bwd": 2 * SMALL_AST["depth"]}
+    for dt in (torch.float32, torch.bfloat16):
+        n_cpu, n_gpu = runs[dt, "cpu"][3], runs[dt, "cuda"][3]
+        check(n_cpu == {"attention_fwd": 0, "attention_bwd": 0} and n_gpu == want,
+              f"small {dt} train steps launched {n_gpu} on the card, {n_cpu} on the CPU; "
+              f"expected {want}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    check(loss_err <= TRAIN_LOSS_RTOL, f"small train step loss on the card vs CPU: {loss_err}")
+    grad_err = max((g_gpu[0][n] - g).abs().max().item() / g.abs().max().item()
+                   for n, g in g_cpu[0].items() if g.abs().max() > 0)
+    check(g_gpu[0].keys() == g_cpu[0].keys() and grad_err <= TRAIN_GRAD_REL,
+          f"small train step gradients on the card vs CPU: {grad_err}")
+    # Adam's update is ~ +-lr wherever |g| >> eps: compare where both steps'
+    # gradients are well above it (a gradient that is 0 in exact arithmetic,
+    # the attention key bias, gets its sign from rounding noise)
+    param_err = 0.0
+    for n, g in g_cpu[0].items():
+        keep = (g.abs() > 1e-5) & (g_cpu[1][n].abs() > 1e-5)
+        if keep.any():
+            param_err = max(param_err, (p_gpu[n] - p_cpu[n]).abs()[keep].max().item())
+    check(param_err <= TRAIN_LR / 10, f"parameters after two steps, card vs CPU: {param_err}")
+    (lb_cpu, gb_cpu, pb_cpu, _), (lb_gpu, gb_gpu, pb_gpu, _) = (
+        runs[torch.bfloat16, "cpu"], runs[torch.bfloat16, "cuda"])
+    check(gb_gpu[0].keys() == gb_cpu[0].keys()
+          and all(g.dtype == torch.float32 for g in gb_gpu[0].values()),
+          "bf16 small train step: gradients missing or not float32")
+    bf16 = {"loss_cpu": lb_cpu, "loss_gpu": lb_gpu,
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(lb_gpu, lb_cpu)),
+            "loss_tolerance": TRAIN_BF16_LOSS_RTOL,
+            "grad_rel_l2": _grad_rel_l2(gb_gpu[0], gb_cpu[0]),
+            "grad_tolerance": TRAIN_BF16_GRAD_REL,
+            "param_max_abs_err": max((pb_gpu[n] - pb_cpu[n]).abs().max().item() for n in pb_cpu),
+            # what bf16 itself costs, on the CPU: bf16 against float32
+            "gap_to_float32": {
+                "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(lb_cpu, l_cpu)),
+                "grad_rel_l2": _grad_rel_l2(gb_cpu[0], g_cpu[0])}}
+    check(bf16["loss_rel_err"] <= TRAIN_BF16_LOSS_RTOL,
+          f"bf16 small train step loss on the card vs CPU: {bf16['loss_rel_err']}")
+    check(bf16["grad_rel_l2"] <= TRAIN_BF16_GRAD_REL,
+          f"bf16 small train step gradients on the card vs CPU: {bf16['grad_rel_l2']}")
+    emit({"phase": "train_small_vs_cpu", "loss_cpu": l_cpu, "loss_gpu": l_gpu,
+          "loss_rel_err": loss_err, "loss_tolerance": TRAIN_LOSS_RTOL,
+          "grad_rel_err": grad_err, "grad_tolerance": TRAIN_GRAD_REL,
+          "param_max_abs_err": param_err, "param_tolerance": TRAIN_LR / 10,
+          "launches_two_steps": runs[torch.float32, "cuda"][3], "bfloat16": bf16})
+
+
+def phase_train_step(steps: int = 4) -> dict:
+    """The stage-1 train step at the flagship widths (AST 768 x 12 x 3,
+    fusion 768 -> 512, decoder 512 -> 1024 x 128), bf16 compute over float32
+    parameters, batch 1 quad (configs/train_audio.json), random weights,
+    synthetic fbanks, dropout and augmentation on: one warm-up step, then
+    ``steps`` timed steps on CUDA events, counted, then one traced step.
+    Last, one step at 3 quads without remat for its peak memory: both peaks
+    against ``train.audio.step_peak_bytes``, the estimate the train_audio
+    CLI switches remat on by. Returns the launches per step."""
+    import torch
+
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.train import audio as ta
+
+    cfg, ast_cfg = ta.AudioTrainConfig(), ASTConfig()
+    t0 = time.perf_counter()
+    state = ta.init_state(0, cfg, torch.bfloat16, ast_cfg, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step, set_lr = ta.make_train_step(cfg)
+    set_lr(state, 0)
+    batch = _train_batch(1, ast_cfg.input_tdim, ast_cfg.input_fdim, 1, torch.device("cuda"))
+    watched = ("emo_enc.v.blocks.0.attn.qkv.weight", "con_enc.v.blocks.11.mlp.fc2.weight",
+               "decode.projection.2.weight")
+    params = dict(state.model.named_parameters())
+    before = {n: params[n].detach().clone() for n in watched}
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch, ta.step_generator(0, 0, 0, "cuda"))  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    host_ms = []  # time for step() to return: the host's enqueue of the step
+    events[0].record()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logs = step(state, batch, ta.step_generator(0, 0, i + 1, "cuda"))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    ms = sum(step_ms) / steps
+    want = {"attention_fwd": ast_cfg.depth * steps, "attention_bwd": ast_cfg.depth * steps}
+    check(counts == want, f"train steps launched {counts}, expected {want} (one K1 and one K2 "
+                          f"per ViT block per step, the three encoders stacked)")
+    loss = logs["total"].item()
+    check(math.isfinite(loss), f"train step loss not finite: {loss}")
+    moved = {n: (params[n].detach() - before[n]).abs().max().item() for n in watched}
+    check(all(v > 0 for v in moved.values()), f"parameters did not move: {moved}")
+    peak1 = torch.cuda.max_memory_allocated()
+    with torch.no_grad():  # the per-step stack + bf16 cast of the three trunks, forward only
+        stack_ms = cuda_ms(state.model.stacked_trunks, iters=5, warmup=1)
+    per_step = {k: v // steps for k, v in counts.items()}
+    emit({"phase": "train_audio_step", "setup_s": setup_s, "params": n_params, "steps": steps,
+          "ms_per_step": ms, "device_ms_each": step_ms, "host_ms_each": host_ms,
+          "loss": loss, "logs": {k: v.item() for k, v in logs.items()},
+          "launches_per_step": per_step, "peak_mem_gib": peak1 / 2**30, "param_moved": moved,
+          "stack_trunks_ms": stack_ms})
+    trace_train_step(state, step, batch)
+    torch.cuda.reset_peak_memory_stats()
+    big = _train_batch(3, ast_cfg.input_tdim, ast_cfg.input_fdim, 2, torch.device("cuda"))
+    logs = step(state, big, ta.step_generator(0, 0, 100, "cuda"))
+    check(math.isfinite(logs["total"].item()), "3-quad train step loss not finite")
+    peak3 = torch.cuda.max_memory_allocated()
+    elements = 12 * ast_cfg.depth * (ast_cfg.num_patches + 2) * ast_cfg.embed_dim
+    est = {q: ta.step_peak_bytes(ast_cfg, q, torch.bfloat16) for q in (1, 3)}
+    mem = {"peak_gib": {1: peak1 / 2**30, 3: peak3 / 2**30},
+           "estimate_gib": {q: e / 2**30 for q, e in est.items()},
+           "act_bytes_per_element": (peak3 - peak1) / 2 / elements,
+           "fixed_bytes_per_param": (peak1 - (peak3 - peak1) / 2) / n_params,
+           "remat_from_quads": next(q for q in range(1, 1000) if ta.remat_needed(
+               ast_cfg, q, torch.bfloat16, torch.device("cuda")))}
+    emit({"phase": "train_audio_memory", "remat": False, **mem})
+    for q, peak in ((1, peak1), (3, peak3)):
+        check(abs(est[q] / peak - 1) <= MEM_EST_RTOL,
+              f"step_peak_bytes at {q} quads: {est[q] / 2**30:.2f} GiB against the measured "
+              f"{peak / 2**30:.2f} GiB")
+    return per_step
+
+
+def trace_train_step(state, step, batch) -> None:
+    """Device time by kernel for one train step (torch.profiler, CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from amuse_tpu_torch.train.audio import step_generator
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, step_generator(0, 0, 99, "cuda"))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, families = [], {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        # user-annotated ranges (Optimizer.step) overlap the kernels they hold
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            rows.append({"kernel": e.key[:90], "ms": us / 1e3, "calls": e.count})
+            family = next((f for f, marks in _KERNEL_FAMILIES if any(m in e.key for m in marks)),
+                          "other elementwise and reductions")
+            families[family] = families.get(family, 0.0) + us / 1e3
+    rows.sort(key=lambda r: -r["ms"])
+    prof.export_chrome_trace(str(OUT / "train_step_trace.json"))
+    emit({"phase": "trace_train_audio_step", "wall_ms": wall_ms,
+          "device_busy_ms": sum(r["ms"] for r in rows), "device_kernels": len(rows),
+          "device_launches": sum(r["calls"] for r in rows),
+          "families_ms": dict(sorted(families.items(), key=lambda kv: -kv[1])),
+          "top": rows[:15]})
+
+
+# kernel families of the traced train step, by substrings of the kernel name
+_KERNEL_FAMILIES = (
+    ("K2 dK/dV pass", ("attn_bwd_dkdv",)), ("K2 dQ pass", ("attn_bwd_dq",)),
+    ("K2 Delta pass", ("attn_bwd_delta",)), ("K1", ("attn_fwd",)),
+    ("cuBLAS GEMMs", ("nvjet", "gemm", "xmma")), ("fused Adam", ("multi_tensor_apply",)),
+    ("copies, casts, stack, cat", ("copy", "CatArray")), ("LayerNorm", ("layer_norm",)),
+)
+
+
+def phase_cli_train():
+    """The port's train_audio CLI at tiny widths (bf16, head dim 32) on a
+    synthetic stage-1 npz written by the port's save_dataset: one epoch with
+    a checkpoint, then a resume that runs a second epoch."""
+    import numpy as np
+
+    from amuse_tpu_torch.data.stage1 import save_dataset
+
+    rng = np.random.default_rng(8)
+
+    def split(n, m):
+        return {"fbank_bank": rng.normal(size=(m, 64, 32)).astype(np.float32),
+                "quad_idx": rng.integers(0, m, (n, 4)).astype(np.int32),
+                "emo_id": rng.integers(0, 8, n).astype(np.int32),
+                "a1_id": rng.integers(0, 30, n).astype(np.int32),
+                "a2_id": rng.integers(0, 30, n).astype(np.int32)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_dataset(tmp / "stage1.npz", split(6, 10), split(2, 4), ["1/a"])
+        cfg = {"data": {"stage1_dataset": str(tmp / "stage1.npz")}, "out_dir": str(tmp / "runs"),
+               "dtype": "bfloat16",
+               "audio": {"ast_embed_dim": 64, "ast_depth": 1, "ast_heads": 2,
+                         "ast_feature_dim": 16, "target_length": 64, "num_mel_bins": 32,
+                         "freq_mask": 4, "time_mask": 8, "epochs": 1, "batch_size": 2}}
+        (tmp / "cfg.json").write_text(json.dumps(cfg))
+        base = [sys.executable, "-m", "amuse_tpu_torch.cli.main", "--fn", "train_audio",
+                "--cfg", str(tmp / "cfg.json")]
+        log = OUT / "cli_train.log"
+
+        def run_cli(*extra):
+            r = subprocess.run(base + list(extra), cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            with open(log, "a") as f:
+                f.write(r.stdout + r.stderr)
+            check(r.returncode == 0, f"train_audio CLI failed (rc {r.returncode}):\n"
+                                     f"{r.stderr[-2000:]}")
+            return r
+
+        t0 = time.perf_counter()
+        first = run_cli()
+        (run,) = (tmp / "runs").iterdir()
+        ckpt = run / "checkpoints"
+        check("epoch 1/1" in first.stdout and (ckpt / "step_00000001" / "state.pt").exists(),
+              "train_audio CLI wrote no epoch-1 checkpoint")
+        second = run_cli("--set", f"resume={ckpt}", "--set", "audio.epochs=2")
+        seconds = time.perf_counter() - t0
+        check("resumed full train state" in second.stdout and "epoch 2/2" in second.stdout
+              and "epoch 1/2" not in second.stdout, "train_audio resume did not continue")
+        metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        check(all(math.isfinite(m["train_total"]) for m in metrics), "CLI loss not finite")
+    emit({"phase": "cli_train_audio", "seconds": seconds, "epochs_logged": len(metrics),
+          "last": second.stdout.strip().splitlines()[-1][:300]})
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
+                                                 "PyTorch/CUDA port on one NVIDIA GPU.")
+    parser.add_argument("--only-k1", action="store_true",
+                        help="build the kernels, run only the K1 phase and print no result "
+                             "line (to time K1 of two checkouts on one card)")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -356,10 +754,16 @@ def main() -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     phase_build()
     k1 = phase_attention()
+    if args.only_k1:
+        return 0
     k3 = phase_sampler()
     phase_small_reference()
     launches = phase_main_path()
     phase_cli()
+    k2 = phase_attention_k2()
+    phase_train_small_vs_cpu()
+    train_launches = phase_train_step()
+    phase_cli_train()
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/attention_fwd.cu",
@@ -375,7 +779,18 @@ def main() -> int:
          "tolerance": k3["tolerance"], "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None},
+        {"name": "attention_bwd", "route": "cuda",
+         "source": "amuse_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "amuse_tpu/ops/attention.py:289", "shape": k2["shape"],
+         "launches": train_launches["attention_bwd"], "launches_per": "train step",
+         "max_abs_err": k2["max_abs_err"],
+         "tolerance": k2["tolerance"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"]},
     ]
+    kernels[0]["launches_per"] = "wav_to_motion call"
+    kernels[1]["launches_per"] = "wav_to_motion call"
+    kernels[0]["launches_per_train_step"] = train_launches["attention_fwd"]
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     (OUT / "kernels.json").write_text(json.dumps({"kernels": kernels, "nvidia_smi": smi,
                                                   "seconds": time.perf_counter() - t_start},

@@ -224,7 +224,9 @@ class TestAST:
         spec = _x(6, 2, 1024, 128)
         ref = jast.ASTEncoder(jast.ASTConfig(**self.CFG)).apply(
             {"params": p}, spec, frame_based_feats)["feature"]
-        _close(port(torch.from_numpy(spec), frame_based_feats), ref, 1e-4)
+        out = port(torch.from_numpy(spec), frame_based_feats)
+        assert out["logits"] is None
+        _close(out["feature"], ref, 1e-4)
 
     def test_encoder_jax_to_port_and_stacking(self):
         jcfg = jast.ASTConfig(**self.CFG)
