@@ -21,31 +21,56 @@
 // the exp and the elementwise terms not counted): at the stage-1 shape
 // (12 = 3 encoders x 4 fbanks, 12 heads, S 1214, D 64) 136 GFLOP, 0.137 ms at
 // 989 TFLOP/s bf16; the bytes (q, k, v, o, dO read, dq, dk, dv written,
-// 179 MB) take 0.053 ms at 3.35 TB/s.
+// 179 MB) take 0.053 ms at 3.35 TB/s. The two passes below recompute S and
+// dP in each (seven products where five are counted), so 0.19 ms is this
+// design's own floor.
 //
 // Design. The TPU kernel keeps dK and dV of a whole head in VMEM and adds to
 // them across q-blocks, "correct only because TPU grid steps run in order".
 // Hopper blocks run concurrently and in no order, so the work is split into
-// passes that each own their outputs, with no atomics (deterministic):
-//   1. delta: Delta_i = rowsum(dO_i * O_i) in float32, one thread per row.
-//   2. dK/dV, kv-tile-major: one block of 4 warps per (batch*head, 64-key
-//      tile), 16 keys per warp, K and V of the warp's keys held as mma A
-//      fragments in registers; loops over 64-query tiles of Q and dO in
-//      padded shared memory. S^T = K Q^T and dP^T = V dO^T run on the tensor
-//      cores; P^T and dS^T stay in registers and are exactly the A operands
-//      of dV += P^T dO and dK += dS^T Q (C layout of two 8-query tiles = A
-//      layout of a 16-query k-step, as in K1).
-//   3. dQ, q-tile-major: one block per (batch*head, 64-query tile), Q and dO
-//      as A fragments, K and V tiles streamed through shared memory;
-//      dQ += dS K.
-// The ragged tail of S is masked in the kernel (P = 0 for keys >= S and for
-// queries >= S), with no padding. All eight tensors are taken with their own
-// (batch, head, seq) strides and a contiguous head dim, so q, k, v come in
-// as strided views of the fused qkv projection and dq, dk, dv are written as
-// views of one (B, S, 3, H, D) buffer: the qkv Linear's backward gets one
-// contiguous gradient.
-//   bf16 (the main path): mma.sync m16n8k16 (bf16 in, f32 accumulate),
-//   synchronous 16-byte loads (no cp.async/TMA pipelining, no wgmma yet).
+// passes that each own their outputs, with no atomics (deterministic, two
+// launches on the same inputs are bit-equal):
+//   1. row statistics, into a float32 scratch (B*H, 2, SP), SP = S rounded
+//      up to 64: Delta_i = rowsum(dO_i * O_i), and K1's LSE times log2(e)
+//      (the passes below work in base 2); rows S..SP get LSE = +inf and
+//      Delta = 0, so a query past S gives P = 2^-inf = 0 with no branch.
+//      D/8 (bf16) or 8 (float32) threads share a row, so a warp reads whole
+//      128-byte lines, and a shuffle reduction finishes the sum.
+//   2. dK/dV, kv-tile-major: one block per (batch*head, 192-key tile).
+//   3. dQ, q-tile-major: one block per (batch*head, 128-query tile).
+// The ragged tail of S is masked in the kernel, with no padding. All eight
+// tensors are taken with their own (batch, head, seq) strides and a
+// contiguous head dim, so q, k, v come in as strided views of the fused qkv
+// projection and dq, dk, dv are written as views of one (B, S, 3, H, D)
+// buffer: the qkv Linear's backward gets one contiguous gradient.
+//   bf16 (the main path; D 64 and D 32 are one template): a block's
+//   warpgroups own 64 of its rows each. The block's own operands (K and V
+//   in pass 2, Q and dO in pass 3) sit in shared memory for its lifetime;
+//   the other pair streams in 64-row tiles through a 3-stage ring filled by
+//   cp.async (sm90_tile.cuh: swizzled, zero-filled past S; pass 2's ring
+//   also carries the tile's 64 LSE and Delta values), one block barrier per
+//   tile. Why cp.async and not TMA: see attention_fwd.cu. Every product is
+//   a wgmma m64nNk16:
+//     pass 2: S^T = K Q^T and dP^T = V dO^T, both operands from shared
+//     memory; P^T and dS^T (rows = keys) stay in registers, rounded to
+//     bf16, as the A operands of dV += P^T dO and dK += dS^T Q, whose B
+//     operands are the same dO and Q tiles read MN-major (transpose bit);
+//     pass 3: S = Q K^T, dP = dO V^T, then dQ += dS K with dS from
+//     registers and the K tile MN-major.
+//   P = ex2(s * scale*log2(e) - lse*log2(e)): one FMA and one ex2 a score.
+//   Registers and residency (ptxas, D 64, no spill in either): pass 2 holds
+//   S^T, dP^T, dK, dV (128 accumulator registers) plus P^T and dS^T: 168
+//   registers, so one block of three warpgroups (384 threads) fills an SM's
+//   register file; with them K2 timed faster than with two warpgroups of
+//   128 keys (186 registers). Pass 3 holds S, dP, dQ and dS in 124
+//   registers, bounded to 128: two blocks of two warpgroups per SM (three
+//   warpgroups in one block timed slower at the train step's shape). Shared
+//   memory: 100 KB (pass 2), 81 KB (pass 3). Both passes run near 40% of the tensor-core
+//   peak on the seven products they execute; what holds them is the chain
+//   barrier -> wgmma -> wait -> exponentials -> wgmma per tile, which the
+//   three or four warpgroups an SM holds overlap only in part (running
+//   warpgroup 1 half a tile behind, as K1 does, did not pay here and is not
+//   kept).
 //   float32: one thread per key (dK/dV) or per query (dQ), scalar FMAs
 //   over shared-memory tiles (no tensor cores: TF32 would round the inputs).
 
@@ -54,32 +79,61 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_tile.cuh"
+
 namespace {
 
 struct Strides {
   long long b, h, s;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Pass 1: row statistics. stats[(bh * 2) * SP + i] = lse_i * log2(e) (bf16;
+// float32: lse_i as it is; +inf for S <= i < SP), stats[(bh * 2 + 1) * SP + i]
+// = sum_d dO[i, d] * O[i, d] (0 for S <= i < SP). TPR threads share a row.
+constexpr int STATS_THREADS = 256;
 
-// Pass 1: Delta_i = sum_d dO[i, d] * O[i, d], float32, (B*H, S) contiguous.
-constexpr int DELTA_THREADS = 128;
-
-template <typename T>
-__global__ void __launch_bounds__(DELTA_THREADS)
-attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ delta, int H, int S, int D, Strides os,
-                      Strides dos) {
-  const int bh = blockIdx.y;
+template <typename T, int D>
+__global__ void __launch_bounds__(STATS_THREADS)
+attn_bwd_stats_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ stats, int H, int S,
+                      int SP, Strides os, Strides dos) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int TPR = BF16 ? D / 8 : 8;
+  constexpr int ROWS = STATS_THREADS / TPR;  // rows per block
+  const int row_tiles = (SP + ROWS - 1) / ROWS;
+  const int bh = blockIdx.x / row_tiles;
   const long long b = bh / H, h = bh % H;
-  const int row = blockIdx.x * DELTA_THREADS + threadIdx.x;
-  if (row >= S) return;
-  const T* op = o + b * os.b + h * os.h + (long long)row * os.s;
-  const T* dp = dout + b * dos.b + h * dos.h + (long long)row * dos.s;
+  const int row = (blockIdx.x % row_tiles) * ROWS + threadIdx.x / TPR;
+  const int sub = threadIdx.x % TPR;
   float acc = 0.f;
-  for (int c = 0; c < D; ++c) acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
-  delta[(long long)bh * S + row] = acc;
+  if (row < S) {
+    const T* op = o + b * os.b + h * os.h + (long long)row * os.s;
+    const T* dp = dout + b * dos.b + h * dos.h + (long long)row * dos.s;
+    if constexpr (BF16) {  // one 16-byte load of each
+      const uint4 ov = *reinterpret_cast<const uint4*>(op + sub * 8);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dp + sub * 8);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(o2[i]), c = __bfloat1622float2(d2[i]);
+        acc = fmaf(a.x, c.x, acc);
+        acc = fmaf(a.y, c.y, acc);
+      }
+    } else {
+#pragma unroll
+      for (int c = sub; c < D; c += TPR) acc = fmaf(op[c], dp[c], acc);
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && row < SP) {
+    const bool in = row < S;
+    // the bf16 passes work in base 2, the float32 passes keep the natural log
+    stats[((long long)bh * 2) * SP + row] =
+        in ? lse[(long long)bh * S + row] * (BF16 ? sm90::LOG2E : 1.f) : INFINITY;
+    stats[((long long)bh * 2 + 1) * SP + row] = in ? acc : 0.f;
+  }
 }
 
 // ---------------------------------------------------------------- float32
@@ -91,21 +145,24 @@ template <int D>
 __global__ void __launch_bounds__(F_THREADS)
 attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int H, int S, Strides qs,
-                  Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs, float scale) {
+                  const float* __restrict__ stats, float* __restrict__ dk,
+                  float* __restrict__ dv, int H, int S, int SP, Strides qs, Strides ks,
+                  Strides vs, Strides dos, Strides dks, Strides dvs, float scale) {
   __shared__ float Qs[F_TILE][D];
   __shared__ float dOs[F_TILE][D];
   __shared__ float Ls[F_TILE], Ds[F_TILE];
 
-  const int bh = blockIdx.y;
+  const int row_tiles = (S + F_THREADS - 1) / F_THREADS;
+  const int bh = blockIdx.x / row_tiles;
   const long long b = bh / H, h = bh % H;
-  const int key = blockIdx.x * F_THREADS + threadIdx.x;
+  const int key = (blockIdx.x % row_tiles) * F_THREADS + threadIdx.x;
   const bool valid = key < S;
   const float* kp = k + b * ks.b + h * ks.h + (long long)(valid ? key : 0) * ks.s;
   const float* vp = v + b * vs.b + h * vs.h + (long long)(valid ? key : 0) * vs.s;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* db = dout + b * dos.b + h * dos.h;
+  const float* lse = stats + (long long)bh * 2 * SP;  // the row statistics of pass 1
+  const float* delta = lse + SP;
 
   float kr[D], vr[D], dka[D], dva[D];
 #pragma unroll
@@ -126,8 +183,8 @@ attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (threadIdx.x < F_TILE) {
       const bool in = threadIdx.x < nq;
-      Ls[threadIdx.x] = in ? lse[(long long)bh * S + q0 + threadIdx.x] : 0.f;
-      Ds[threadIdx.x] = in ? delta[(long long)bh * S + q0 + threadIdx.x] : 0.f;
+      Ls[threadIdx.x] = in ? lse[q0 + threadIdx.x] : 0.f;
+      Ds[threadIdx.x] = in ? delta[q0 + threadIdx.x] : 0.f;
     }
     __syncthreads();
     for (int i = 0; i < nq; ++i) {  // queries past S are not visited
@@ -161,22 +218,23 @@ template <int D>
 __global__ void __launch_bounds__(F_THREADS)
 attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                float* __restrict__ dq, int H, int S, Strides qs, Strides ks, Strides vs,
-                Strides dos, Strides dqs, float scale) {
+                const float* __restrict__ stats, float* __restrict__ dq, int H, int S, int SP,
+                Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs, float scale) {
   __shared__ float Ks[F_TILE][D];
   __shared__ float Vs[F_TILE][D];
 
-  const int bh = blockIdx.y;
+  const int row_tiles = (S + F_THREADS - 1) / F_THREADS;
+  const int bh = blockIdx.x / row_tiles;
   const long long b = bh / H, h = bh % H;
-  const int row = blockIdx.x * F_THREADS + threadIdx.x;
+  const int row = (blockIdx.x % row_tiles) * F_THREADS + threadIdx.x;
   const bool valid = row < S;
   const int r = valid ? row : 0;
   const float* qp = q + b * qs.b + h * qs.h + (long long)r * qs.s;
   const float* dop = dout + b * dos.b + h * dos.h + (long long)r * dos.s;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  const float L = lse[(long long)bh * S + r], Dd = delta[(long long)bh * S + r];
+  const float L = stats[(long long)bh * 2 * SP + r];
+  const float Dd = stats[((long long)bh * 2 + 1) * SP + r];
 
   float qr[D], dor[D], acc[D];
 #pragma unroll
@@ -216,295 +274,310 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ bf16
 
-constexpr int MMA_ROWS = 64;  // keys (dK/dV) or queries (dQ) per block: 4 warps x 16
-constexpr int MMA_TILE = 64;  // rows of the streamed operand per shared-memory tile
-constexpr int MMA_THREADS = 128;
+constexpr int W_TILE = 64;     // rows of the streamed operands per ring stage
+constexpr int W_STAGES = 3;    // stages of the ring: two tiles load while one is at work
+constexpr int W_LOADERS = 256; // threads that issue the copies (every block has at least these)
+constexpr int W_STAT_BYTES = 2 * W_TILE * 4;  // a stage's LSE and Delta values (pass 2)
+constexpr int DKDV_WGS = 3;    // warpgroups (64 keys each) per block of pass 2
+constexpr int DQ_WGS = 2;      // warpgroups (64 queries each) per block of pass 3
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+template <int D, int WGS>
+constexpr int bwd_smem_bytes(bool with_stats) {
+  return 1024 + (2 * 64 * WGS + 2 * W_STAGES * W_TILE) * sm90::Tile<D>::ROW_BYTES +
+         (with_stats ? W_STAGES * W_STAT_BYTES : 0);  // 1024: alignment
 }
 
-__device__ __forceinline__ uint32_t pack_raw(unsigned short lo, unsigned short hi) {
-  return (static_cast<uint32_t>(hi) << 16) | lo;
-}
+// Pass 2: dK and dV of one tile of 64 WGS keys; loops over every 64-query tile.
+template <int D, int WGS>
+__global__ void __launch_bounds__(128 * WGS, 1)
+attn_bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int H, int S, int SP, int row_tiles,
+                    Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+                    float scale, float scale_log2) {
+  using namespace sm90;
+  using T = Tile<D>;
+  constexpr int ROWS = 64 * WGS;
+  constexpr int OWN_BYTES = ROWS * T::ROW_BYTES, TILE_BYTES = W_TILE * T::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + OWN_BYTES;
+  const uint32_t ring_s = v_s + OWN_BYTES;  // stage i: Q at + 2 i TILE_BYTES, then dO
+  const uint32_t stat_s = ring_s + W_STAGES * 2 * TILE_BYTES;  // stage i: 64 LSE, 64 Delta
+  const uint8_t* stat_p = smem_raw + (stat_s - smem_u32(smem_raw));
 
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The warp's 16 rows (lo = g, hi = g + 8) of a (S, D) operand as A fragments
-// of m16n8k16 (k = the head dim); rows at or past S are 0.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const __nv_bfloat16* base,
-                                       long long stride, int r_lo, int S, int t) {
-  const int r_hi = r_lo + 8;
-  auto word = [&](int r, int c) -> uint32_t {
-    return r < S ? *reinterpret_cast<const uint32_t*>(base + (long long)r * stride + c) : 0u;
-  };
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    a[kk][0] = word(r_lo, kk * 16 + 2 * t);
-    a[kk][1] = word(r_hi, kk * 16 + 2 * t);
-    a[kk][2] = word(r_lo, kk * 16 + 8 + 2 * t);
-    a[kk][3] = word(r_hi, kk * 16 + 8 + 2 * t);
-  }
-}
-
-// Copy rows [r0, r0 + MMA_TILE) of two (S, D) operands into padded shared
-// memory tiles (row length LD), 16 bytes per thread per step; rows at or
-// past S are 0.
-template <int D, int LD>
-__device__ __forceinline__ void load_tiles(__nv_bfloat16* xs, __nv_bfloat16* ys,
-                                           const __nv_bfloat16* xb, long long xstride,
-                                           const __nv_bfloat16* yb, long long ystride, int r0,
-                                           int S) {
-  constexpr int VECS = MMA_TILE * D / 8;
-  for (int i = threadIdx.x; i < VECS; i += MMA_THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const int row = r0 + r;
-    uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = xv;
-    if (row < S) {
-      xv = *reinterpret_cast<const uint4*>(xb + (long long)row * xstride + c);
-      yv = *reinterpret_cast<const uint4*>(yb + (long long)row * ystride + c);
-    }
-    *reinterpret_cast<uint4*>(&xs[r * LD + c]) = xv;
-    *reinterpret_cast<uint4*>(&ys[r * LD + c]) = yv;
-  }
-}
-
-// acc[j] (16 x 8, j-th 8-row tile of the shared operand) = A * X^T over the
-// head dim: the B fragment of tile j is row j*8+g of the shared tile.
-template <int D, int LD>
-__device__ __forceinline__ void products(float (&acc)[MMA_TILE / 8][4],
-                                         const uint32_t (&a)[D / 16][4],
-                                         const __nv_bfloat16* xs, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < MMA_TILE / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const __nv_bfloat16* xr = &xs[(j * 8 + g) * LD];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr + kk * 16 + 2 * t);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + kk * 16 + 8 + 2 * t);
-      mma_bf16(acc[j], a[kk], b0, b1);
-    }
-  }
-}
-
-// acc (16 x D) += A (16 x MMA_TILE, as 16-row A fragments over the tile's
-// rows) * X (MMA_TILE x D) from the shared tile.
-template <int D, int LD>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const uint32_t (&a)[MMA_TILE / 16][4],
-                                           const __nv_bfloat16* xs, int g, int t) {
-  const unsigned short* raw = reinterpret_cast<const unsigned short*>(xs);
-#pragma unroll
-  for (int kk = 0; kk < MMA_TILE / 16; ++kk) {
-    const int r = kk * 16 + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const int col = nt * 8 + g;
-      const uint32_t b0 = pack_raw(raw[r * LD + col], raw[(r + 1) * LD + col]);
-      const uint32_t b1 = pack_raw(raw[(r + 8) * LD + col], raw[(r + 9) * LD + col]);
-      mma_bf16(acc[nt], a[kk], b0, b1);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long stride,
-                                           const float (&acc)[D / 8][4], int r_lo, int S,
-                                           int t) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    if (r_lo < S)
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)r_lo * stride + c) =
-          __floats2bfloat162_rn(acc[nt][0], acc[nt][1]);
-    if (r_lo + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)(r_lo + 8) * stride + c) =
-          __floats2bfloat162_rn(acc[nt][2], acc[nt][3]);
-  }
-}
-
-// Pass 2: dK and dV of one 64-key tile; loops over every query tile.
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-attn_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int S,
-                  Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-                  float scale) {
-  constexpr int LD = D + 8;  // padded row: conflict-free fragment loads
-  constexpr int NT = MMA_TILE / 8;
-  __shared__ __align__(16) __nv_bfloat16 Qs[MMA_TILE * LD];
-  __shared__ __align__(16) __nv_bfloat16 dOs[MMA_TILE * LD];
-  __shared__ float Ls[MMA_TILE], Ds[MMA_TILE];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x / row_tiles;
   const long long b = bh / H, h = bh % H;
-  const int key_lo = blockIdx.x * MMA_ROWS + warp * 16 + g;
+  const int key0 = (blockIdx.x % row_tiles) * ROWS;
+  const int key_lo = key0 + wg * 64 + warp * 16 + g;
+  const bool active = key0 + wg * 64 < S;  // warpgroup-uniform
+  const bool loader = threadIdx.x < W_LOADERS;
   const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
   const __nv_bfloat16* db = dout + b * dos.b + h * dos.h;
+  const float* sb = stats + (long long)bh * 2 * SP;
+  const int n_tiles = SP / W_TILE;
 
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, k + b * ks.b + h * ks.h, ks.s, key_lo, S, t);
-  load_a<D>(va, v + b * vs.b + h * vs.h, vs.s, key_lo, S, t);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += MMA_TILE) {
-    __syncthreads();  // the previous tile is no longer read
-    load_tiles<D, LD>(Qs, dOs, qb, qs.s, db, dos.s, q0, S);
-    if (threadIdx.x < MMA_TILE) {
-      const int qi = q0 + threadIdx.x;
-      Ls[threadIdx.x] = qi < S ? lse[(long long)bh * S + qi] : 0.f;
-      Ds[threadIdx.x] = qi < S ? delta[(long long)bh * S + qi] : 0.f;
-    }
-    __syncthreads();
-
-    float st[NT][4], dpt[NT][4];  // S^T and dP^T: rows = keys, cols = queries
-    products<D, LD>(st, ka, Qs, g, t);
-    products<D, LD>(dpt, va, dOs, g, t);
-
-    uint32_t pa[MMA_TILE / 16][4], dsa[MMA_TILE / 16][4];  // P^T, dS^T in bf16
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const bool in = q0 + col < S;  // queries past S: P = 0
-        const float L = Ls[col], Dq = Ds[col];
-        p[e] = in ? expf(st[j][e] * scale - L) : 0.f;
-        p[2 + e] = in ? expf(st[j][2 + e] * scale - L) : 0.f;
-        ds[e] = p[e] * (dpt[j][e] - Dq) * scale;
-        ds[2 + e] = p[2 + e] * (dpt[j][2 + e] - Dq) * scale;
+  auto load_stage = [&](int tile) {  // one commit group per call, empty past the last tile
+    if (tile < n_tiles && loader) {
+      const int stage = tile % W_STAGES;
+      const uint32_t dst = ring_s + stage * 2 * TILE_BYTES;
+      load_tile_async<D, W_TILE, W_LOADERS>(dst, qb, qs.s, tile * W_TILE, S);
+      load_tile_async<D, W_TILE, W_LOADERS>(dst + TILE_BYTES, db, dos.s, tile * W_TILE, S);
+      if (threadIdx.x < 32) {  // 16 chunks of LSE, 16 of Delta; SP pads both past S
+        const int which = threadIdx.x / 16, c = threadIdx.x % 16;
+        cp_async16(stat_s + stage * W_STAT_BYTES + threadIdx.x * 16,
+                   sb + (long long)which * SP + tile * W_TILE + c * 4, 16);
       }
-      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      dsa[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    accumulate<D, LD>(dva, pa, dOs, g, t);  // dV += P^T dO
-    accumulate<D, LD>(dka, dsa, Qs, g, t);  // dK += dS^T Q
+    cp_async_commit();
+  };
+  if (loader) {
+    load_tile_async<D, ROWS, W_LOADERS>(k_s, k + b * ks.b + h * ks.h, ks.s, key0, S);
+    load_tile_async<D, ROWS, W_LOADERS>(v_s, v + b * vs.b + h * vs.h, vs.s, key0, S);
   }
-  store_rows<D>(dk + b * dks.b + h * dks.h, dks.s, dka, key_lo, S, t);
-  store_rows<D>(dv + b * dvs.b + h * dvs.h, dvs.s, dva, key_lo, S, t);
+#pragma unroll
+  for (int i = 0; i < W_STAGES - 1; ++i) load_stage(i);  // K and V ride in the first group
+
+  const uint64_t k_desc = T::desc(k_s + wg * 64 * T::ROW_BYTES);
+  const uint64_t v_desc = T::desc(v_s + wg * 64 * T::ROW_BYTES);
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<W_STAGES - 2>();  // this thread's part of tile j has landed
+    fence_proxy_async();
+    __syncthreads();  // tile j is whole; tile j-1 is no longer read
+    load_stage(j + W_STAGES - 1);  // into the stage tile j-1 held
+    if (!active) continue;
+
+    const int stage = j % W_STAGES;
+    const uint32_t q_t = ring_s + stage * 2 * TILE_BYTES, do_t = q_t + TILE_BYTES;
+    const float* Ls = reinterpret_cast<const float*>(stat_p + stage * W_STAT_BYTES);
+    const float* Ds = Ls + W_TILE;
+
+    float st[32], dpt[32];  // S^T and dP^T: rows = keys, columns = queries
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+    product_kmajor<D>(st, k_desc, T::desc(q_t));
+    product_kmajor<D>(dpt, v_desc, T::desc(do_t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    uint32_t pa[4][4], dsa[4][4];  // P^T and dS^T in bf16, as A fragments
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      const float2 L = *reinterpret_cast<const float2*>(Ls + jb * 8 + 2 * t);
+      const float2 Dq = *reinterpret_cast<const float2*>(Ds + jb * 8 + 2 * t);
+      const float p0 = ex2(fmaf(st[4 * jb], scale_log2, -L.x));  // 0 for a query past S
+      const float p1 = ex2(fmaf(st[4 * jb + 1], scale_log2, -L.y));
+      const float p2 = ex2(fmaf(st[4 * jb + 2], scale_log2, -L.x));
+      const float p3 = ex2(fmaf(st[4 * jb + 3], scale_log2, -L.y));
+      pa[jb / 2][(jb % 2) * 2] = pack_bf16(p0, p1);
+      pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(p2, p3);
+      dsa[jb / 2][(jb % 2) * 2] = pack_bf16(p0 * (dpt[4 * jb] - Dq.x) * scale,
+                                            p1 * (dpt[4 * jb + 1] - Dq.y) * scale);
+      dsa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(p2 * (dpt[4 * jb + 2] - Dq.x) * scale,
+                                                p3 * (dpt[4 * jb + 3] - Dq.y) * scale);
+    }
+
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+    accumulate_mnmajor<D>(dva, pa, T::desc(do_t));  // dV += P^T dO
+    accumulate_mnmajor<D>(dka, dsa, T::desc(q_t));  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  store_rows<D>(dk + b * dks.b + h * dks.h, dks.s, dka, key_lo, S, t, 1.f, 1.f);
+  store_rows<D>(dv + b * dvs.b + h * dvs.h, dvs.s, dva, key_lo, S, t, 1.f, 1.f);
 }
 
-// Pass 3: dQ of one 64-query tile; loops over every key tile.
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-attn_bwd_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, int H, int S, Strides qs, Strides ks,
-                Strides vs, Strides dos, Strides dqs, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int NT = MMA_TILE / 8;
-  __shared__ __align__(16) __nv_bfloat16 Ks[MMA_TILE * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MMA_TILE * LD];
+// Pass 3: dQ of one tile of 64 WGS queries; loops over every 64-key tile.
+template <int D, int WGS>
+__global__ void __launch_bounds__(128 * WGS, WGS == 2 ? 2 : 1)
+attn_bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int H, int S,
+                  int SP, int row_tiles, Strides qs, Strides ks, Strides vs, Strides dos,
+                  Strides dqs, float scale, float scale_log2) {
+  using namespace sm90;
+  using T = Tile<D>;
+  constexpr int ROWS = 64 * WGS;
+  constexpr int OWN_BYTES = ROWS * T::ROW_BYTES, TILE_BYTES = W_TILE * T::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + OWN_BYTES;
+  const uint32_t ring_s = do_s + OWN_BYTES;  // stage i: K at + 2 i TILE_BYTES, then V
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x / row_tiles;
   const long long b = bh / H, h = bh % H;
-  const int r_lo = blockIdx.x * MMA_ROWS + warp * 16 + g, r_hi = r_lo + 8;
+  const int q0 = (blockIdx.x % row_tiles) * ROWS;
+  const int r_lo = q0 + wg * 64 + warp * 16 + g, r_hi = r_lo + 8;
+  const bool active = q0 + wg * 64 < S;  // warpgroup-uniform
+  const bool loader = threadIdx.x < W_LOADERS;
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+  const int n_tiles = (S + W_TILE - 1) / W_TILE;
 
-  uint32_t qa[D / 16][4], doa[D / 16][4];
-  load_a<D>(qa, q + b * qs.b + h * qs.h, qs.s, r_lo, S, t);
-  load_a<D>(doa, dout + b * dos.b + h * dos.h, dos.s, r_lo, S, t);
-  // rows past S: Q and dO are 0, so dS = 0 there; their dQ is not written
-  const float L_lo = r_lo < S ? lse[(long long)bh * S + r_lo] : 0.f;
-  const float L_hi = r_hi < S ? lse[(long long)bh * S + r_hi] : 0.f;
-  const float D_lo = r_lo < S ? delta[(long long)bh * S + r_lo] : 0.f;
-  const float D_hi = r_hi < S ? delta[(long long)bh * S + r_hi] : 0.f;
-
-  float dqa[D / 8][4];
+  auto load_stage = [&](int tile) {  // one commit group per call, empty past the last tile
+    if (tile < n_tiles && loader) {
+      const uint32_t dst = ring_s + (tile % W_STAGES) * 2 * TILE_BYTES;
+      load_tile_async<D, W_TILE, W_LOADERS>(dst, kb, ks.s, tile * W_TILE, S);
+      load_tile_async<D, W_TILE, W_LOADERS>(dst + TILE_BYTES, vb, vs.s, tile * W_TILE, S);
+    }
+    cp_async_commit();
+  };
+  if (loader) {
+    load_tile_async<D, ROWS, W_LOADERS>(q_s, q + b * qs.b + h * qs.h, qs.s, q0, S);
+    load_tile_async<D, ROWS, W_LOADERS>(do_s, dout + b * dos.b + h * dos.h, dos.s, q0, S);
+  }
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) dqa[nt][0] = dqa[nt][1] = dqa[nt][2] = dqa[nt][3] = 0.f;
+  for (int i = 0; i < W_STAGES - 1; ++i) load_stage(i);  // Q and dO ride in the first group
 
-  for (int k0 = 0; k0 < S; k0 += MMA_TILE) {
-    __syncthreads();
-    load_tiles<D, LD>(Ks, Vs, kb, ks.s, vb, vs.s, k0, S);
-    __syncthreads();
+  // a row past S: P = 2^-inf = 0, so dS = 0; its dQ is not written
+  const float* sb = stats + (long long)bh * 2 * SP;
+  const float L_lo = r_lo < S ? sb[r_lo] : INFINITY, L_hi = r_hi < S ? sb[r_hi] : INFINITY;
+  const float D_lo = r_lo < S ? sb[SP + r_lo] : 0.f, D_hi = r_hi < S ? sb[SP + r_hi] : 0.f;
 
-    float sc[NT][4], dp[NT][4];  // S and dP: rows = queries, cols = keys
-    products<D, LD>(sc, qa, Ks, g, t);
-    products<D, LD>(dp, doa, Vs, g, t);
-
-    uint32_t dsa[MMA_TILE / 16][4];
+  const uint64_t q_desc = T::desc(q_s + wg * 64 * T::ROW_BYTES);
+  const uint64_t do_desc = T::desc(do_s + wg * 64 * T::ROW_BYTES);
+  float dqa[D / 2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<W_STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    load_stage(j + W_STAGES - 1);
+    if (!active) continue;
+
+    const uint32_t k_t = ring_s + (j % W_STAGES) * 2 * TILE_BYTES, v_t = k_t + TILE_BYTES;
+    float sc[32], dp[32];  // S and dP: rows = queries, columns = keys
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    product_kmajor<D>(sc, q_desc, T::desc(k_t));
+    product_kmajor<D>(dp, do_desc, T::desc(v_t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool tail = j * W_TILE + W_TILE > S;  // the ragged tail: keys at or past S, P = 0
+    uint32_t dsa[4][4];  // dS in bf16, as A fragments
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool in = k0 + j * 8 + 2 * t + e < S;  // keys past S: P = 0
-        const float p_lo = in ? expf(sc[j][e] * scale - L_lo) : 0.f;
-        const float p_hi = in ? expf(sc[j][2 + e] * scale - L_hi) : 0.f;
-        ds[e] = p_lo * (dp[j][e] - D_lo) * scale;
-        ds[2 + e] = p_hi * (dp[j][2 + e] - D_hi) * scale;
+        float p_lo = ex2(fmaf(sc[4 * jb + e], scale_log2, -L_lo));
+        float p_hi = ex2(fmaf(sc[4 * jb + 2 + e], scale_log2, -L_hi));
+        if (tail && j * W_TILE + jb * 8 + 2 * t + e >= S) p_lo = p_hi = 0.f;
+        ds[e] = p_lo * (dp[4 * jb + e] - D_lo) * scale;
+        ds[2 + e] = p_hi * (dp[4 * jb + 2 + e] - D_hi) * scale;
       }
-      dsa[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      dsa[jb / 2][(jb % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    accumulate<D, LD>(dqa, dsa, Ks, g, t);  // dQ += dS K
+
+    fence_regs(dqa);
+    wgmma_fence();
+    accumulate_mnmajor<D>(dqa, dsa, T::desc(k_t));  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
   }
-  store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, dqa, r_lo, S, t);
+  cp_async_wait<0>();
+  if (!active) return;
+  store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, dqa, r_lo, S, t, 1.f, 1.f);
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                       int B, int H, int S, const Strides* st, float scale, cudaStream_t s) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                         const float* stats, void* dq, void* dk, void* dv, int B, int H, int S,
+                         int SP, const Strides* st, float scale, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  const dim3 grid((S + MMA_ROWS - 1) / MMA_ROWS, B * H);
-  attn_bwd_dkdv_mma<D><<<grid, MMA_THREADS, 0, s>>>(
+  constexpr int DKDV_SMEM = bwd_smem_bytes<D, DKDV_WGS>(true);
+  constexpr int DQ_SMEM = bwd_smem_bytes<D, DQ_WGS>(false);
+  static cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(attn_bwd_dkdv_wgmma<D, DKDV_WGS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DKDV_SMEM);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(attn_bwd_dq_wgmma<D, DQ_WGS>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   DQ_SMEM);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const unsigned heads = (unsigned)B * H;
+  const int key_tiles = (S + 64 * DKDV_WGS - 1) / (64 * DKDV_WGS);
+  attn_bwd_dkdv_wgmma<D, DKDV_WGS><<<key_tiles * heads, 128 * DKDV_WGS, DKDV_SMEM, s>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), H,
-      S, st[0], st[1], st[2], st[4], st[6], st[7], scale);
+      static_cast<const bf*>(dout), stats, static_cast<bf*>(dk), static_cast<bf*>(dv), H, S, SP,
+      key_tiles, st[0], st[1], st[2], st[4], st[6], st[7], scale, scale * sm90::LOG2E);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_mma<D><<<grid, MMA_THREADS, 0, s>>>(
+  const int q_tiles = (S + 64 * DQ_WGS - 1) / (64 * DQ_WGS);
+  attn_bwd_dq_wgmma<D, DQ_WGS><<<q_tiles * heads, 128 * DQ_WGS, DQ_SMEM, s>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-      static_cast<const bf*>(dout), lse, delta, static_cast<bf*>(dq), H, S, st[0], st[1], st[2],
-      st[4], st[5], scale);
+      static_cast<const bf*>(dout), stats, static_cast<bf*>(dq), H, S, SP, q_tiles, st[0],
+      st[1], st[2], st[4], st[5], scale, scale * sm90::LOG2E);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                       int B, int H, int S, const Strides* st, float scale, cudaStream_t s) {
-  const dim3 grid((S + F_THREADS - 1) / F_THREADS, B * H);
+                       const float* stats, void* dq, void* dk, void* dv, int B, int H, int S,
+                       int SP, const Strides* st, float scale, cudaStream_t s) {
+  const unsigned grid = (unsigned)((S + F_THREADS - 1) / F_THREADS) * B * H;
   attn_bwd_dkdv_f32<D><<<grid, F_THREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), H, S, st[0], st[1], st[2], st[4], st[6], st[7], scale);
+      static_cast<const float*>(dout), stats, static_cast<float*>(dk), static_cast<float*>(dv),
+      H, S, SP, st[0], st[1], st[2], st[4], st[6], st[7], scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attn_bwd_dq_f32<D><<<grid, F_THREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), H, S, st[0], st[1],
+      static_cast<const float*>(dout), stats, static_cast<float*>(dq), H, S, SP, st[0], st[1],
       st[2], st[4], st[5], scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_stats(const void* o, const void* dout, const float* lse, float* stats, int B,
+                         int H, int S, int SP, const Strides* st, cudaStream_t s) {
+  constexpr int ROWS = STATS_THREADS / (sizeof(T) == 2 ? D / 8 : 8);  // rows per block
+  const unsigned grid = (unsigned)((SP + ROWS - 1) / ROWS) * B * H;
+  attn_bwd_stats_kernel<T, D><<<grid, STATS_THREADS, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, stats, H, S, SP, st[3], st[4]);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_all(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* stats, void* dq, void* dk,
+                       void* dv, int B, int H, int S, const Strides* st, float scale,
+                       cudaStream_t s) {
+  const int SP = (S + 63) / 64 * 64;
+  const cudaError_t err = launch_stats<T, D>(o, dout, lse, stats, B, H, S, SP, st, s);
+  if (err != cudaSuccess) return err;
+  if constexpr (sizeof(T) == 2)
+    return launch_wgmma<D>(q, k, v, dout, stats, dq, dk, dv, B, H, S, SP, st, scale, s);
+  else
+    return launch_f32<D>(q, k, v, dout, stats, dq, dk, dv, B, H, S, SP, st, scale, s);
 }
 
 }  // namespace
@@ -515,37 +588,30 @@ extern "C" {
 // head, seq) of q, k, v, o, dout, dq, dk, dv in that order; the head dim of
 // every tensor must be contiguous; for bfloat16 the pointers must be 16-byte
 // aligned and the strides multiples of 8 (checked by the Python wrapper).
-// lse: K1's float32 (B, H, S) row log-sum-exp; delta: float32 (B, H, S)
-// scratch, written here. Launches the three passes on `stream` and returns
-// the first launch error (cudaGetLastError()), or 0.
+// lse: K1's float32 (B, H, S) row log-sum-exp; stats: float32 scratch of
+// B * H * 2 * SP values, SP = S rounded up to a multiple of 64, written here
+// (16-byte aligned). Launches the three passes on `stream` and returns the
+// first launch error (cudaGetLastError()), or 0.
 int attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  const void* lse, void* delta, void* dq, void* dk, void* dv, int dtype, int B,
+                  const void* lse, void* stats, void* dq, void* dk, void* dv, int dtype, int B,
                   int H, int S, int D, const long long* strides, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || S <= 0) return cudaErrorInvalidValue;
+  // every grid is one dimension of (batch*head, row tile) pairs, 32 rows at least
+  if ((long long)B * H * ((S + 63) / 64 * 2) > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (!((dtype == 0 || dtype == 1) && (D == 32 || D == 64))) return cudaErrorInvalidValue;
   Strides st[8];
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(delta);
-
-  const dim3 dgrid((S + DELTA_THREADS - 1) / DELTA_THREADS, B * H);
-  if (dtype == 0)
-    attn_bwd_delta_kernel<float><<<dgrid, DELTA_THREADS, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), d, H, S, D, st[3], st[4]);
-  else
-    attn_bwd_delta_kernel<__nv_bfloat16><<<dgrid, DELTA_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), d, H, S,
-        D, st[3], st[4]);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
+  float* w = static_cast<float*>(stats);
+  using bf = __nv_bfloat16;
   if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, dout, l, d, dq, dk, dv, B, H, S, st, scale, s);
-  if (dtype == 0) return launch_f32<32>(q, k, v, dout, l, d, dq, dk, dv, B, H, S, st, scale, s);
-  if (D == 64) return launch_mma<64>(q, k, v, dout, l, d, dq, dk, dv, B, H, S, st, scale, s);
-  return launch_mma<32>(q, k, v, dout, l, d, dq, dk, dv, B, H, S, st, scale, s);
+    return launch_all<float, 64>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, S, st, scale, s);
+  if (dtype == 0)
+    return launch_all<float, 32>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, S, st, scale, s);
+  if (D == 64) return launch_all<bf, 64>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, S, st, scale, s);
+  return launch_all<bf, 32>(q, k, v, o, dout, l, w, dq, dk, dv, B, H, S, st, scale, s);
 }
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

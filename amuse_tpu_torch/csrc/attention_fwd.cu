@@ -7,16 +7,18 @@
 // accumulated in float32, P cast to V's type before P V, and the row
 // division applied to the output row instead of the (S, S) plane.
 // Optionally (lse != nullptr) it also writes each row's float32 log-sum-exp
-// of the scaled scores, (B, H, S) contiguous, which the backward kernel K2
-// (attention_bwd.cu) reads to rebuild P without a second softmax pass. The
-// LSE store is a template switch (WITH_LSE), chosen at launch by whether lse
-// is null: the inference path (nullptr) runs an instantiation with no LSE
-// code in it, so its registers and occupancy are those of the kernel
-// without the output.
+// of the scaled scores (natural log), (B, H, S) contiguous, which the
+// backward kernel K2 (attention_bwd.cu) reads to rebuild P without a second
+// softmax pass. The LSE store is a template switch (WITH_LSE), chosen at
+// launch by whether lse is null: the inference path (nullptr) runs an
+// instantiation with no LSE code in it.
 //
 // Bound on the H100: compute. 4 S^2 D operations per (batch, head): at the
 // AST shape (S 1214, D 64, 12 heads x 3 encoders per window) that is about
-// 13.6 GFLOP per ViT block call at N = 1, ~14 us at 989 TFLOP/s bf16.
+// 13.6 GFLOP per ViT block call at N = 1, ~14 us at 989 TFLOP/s bf16. At
+// D 64 the softmax costs the SM as much as the products do (one exp2 on the
+// 16-per-clock special-function units per 256 tensor-core operations at
+// 4096 per clock), so about twice the bound is the practical floor.
 //
 // Design. The TPU kernel holds one head's whole K and V in VMEM (1280 x 64
 // bf16 = 160 KiB each), which does not fit a Hopper block's 227 KB of
@@ -26,12 +28,43 @@
 // and O are taken with their own (batch, head, seq) strides and a
 // contiguous head dim, so strided views of the fused qkv projection feed it
 // without copies.
-//   bf16 (the main path): one block of 4 warps per (batch*head, 64-row q
-//   tile), 16 rows per warp; Q K^T and P V run on the tensor cores as
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate) over 64-key tiles held in
-//   padded (bank-conflict-free) shared memory; S and P stay in registers,
-//   P is rounded to bf16 as the A operand of P V. Loads are synchronous
-//   16-byte copies (no cp.async/TMA pipelining, no wgmma): later work.
+//   bf16 (the main path; D 64 and D 32 are one template): one block of two
+//   warpgroups (256 threads) per (batch*head, 128-row q tile), 64 rows per
+//   warpgroup. K and V arrive in 64-key tiles through a 4-stage ring in
+//   shared memory filled by cp.async (sm90_tile.cuh: swizzled tiles,
+//   zero-filled past S), so the loads of tiles j+1 and j+2 are in flight
+//   while the tensor cores work on tiles j and j-1; one block barrier per
+//   tile. cp.async rather than TMA: the operands are strided views whose
+//   pointers change with every call of a train step, so tensor maps would
+//   be encoded (or looked up) on the host for every launch of a step that
+//   is already paced by its host, while the copy costs a thread four
+//   instructions per tile; its zero-fill also serves a ragged or sub-tile S
+//   with no transaction count that could leave a barrier waiting. S = Q K^T runs as
+//   wgmma m64n64k16 with both operands read from shared memory through
+//   matrix descriptors; S, the running max/sum and P stay in registers (the
+//   accumulator's thread layout is that of mma.sync: rows lane/4 and +8,
+//   columns 8j + 2(lane%4)), P is rounded to bf16 as the register A operand
+//   of O += P V, whose B operand is the V tile read MN-major (transpose
+//   bit), no transposing copy. The softmax runs in base 2: scale * log2(e)
+//   is folded into one FMA per score before a single ex2; the LSE is
+//   converted back, (m + log2(l)) * ln(2).
+//   Warpgroup 1 runs half a tile behind warpgroup 0 (its O += P V of tile
+//   j-1 is issued where warpgroup 0 issues S of tile j), so that one's
+//   softmax meets the other's products; O += P V is left in flight across
+//   the barrier and waited for with the next S. Against the plain order
+//   this gained a few percent at both shapes when it was introduced.
+//   Registers (ptxas, D 64): 120-123 a thread, bounded to 128, so two
+//   blocks (four warpgroups) share an SM (81 KB of shared memory each); no
+//   spill. A warpgroup whose 64 rows lie wholly past S (the second half of
+//   the last q tile) joins the loads and barriers and skips the arithmetic.
+//   The grid is one dimension, (batch*head, q tile) with the tile fastest,
+//   so the blocks of one head run together and share K and V in L2.
+//   It runs at about a third of the tensor-core peak: per tile each
+//   warpgroup walks the chain barrier -> wgmma -> wait -> softmax -> wgmma,
+//   and the four warpgroups an SM holds overlap products and softmax only in
+//   part. Three warpgroups of 128-key tiles (one block an SM) were faster at
+//   (3, 12, 1214, 64), whose 360 blocks fill 1.4 waves here, and slower at
+//   the train step's shape; one configuration is kept.
 //   float32: one thread per query row, 32-key tiles, float32 FMAs with
 //   broadcast shared-memory operands (no tensor cores: TF32 would round
 //   the inputs the plain version keeps).
@@ -40,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90_tile.cuh"
 
 namespace {
 
@@ -59,9 +94,10 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float Ks[BK][D];
   __shared__ float Vs[BK][D];
 
-  const int bh = blockIdx.y;
+  const int q_tiles = (S + BQ - 1) / BQ;
+  const int bh = blockIdx.x / q_tiles;
   const long long b = bh / H, h = bh % H;
-  const int row = blockIdx.x * BQ + threadIdx.x;
+  const int row = (blockIdx.x % q_tiles) * BQ + threadIdx.x;
   const bool valid = row < S;
 
   const float* qp = q + b * qs.b + h * qs.h + (long long)(valid ? row : 0) * qs.s;
@@ -120,200 +156,197 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-constexpr int MMA_BQ = 64;  // query rows per block: 4 warps x 16
-constexpr int MMA_BK = 64;  // keys per shared-memory tile
-constexpr int MMA_THREADS = 128;
+// ------------------------------------------------------------------ bf16
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+constexpr int W_BM = 128;      // query rows per block: two warpgroups x 64
+constexpr int W_BK = 64;       // keys per shared-memory tile
+constexpr int W_STAGES = 4;    // K/V tiles in the ring
+constexpr int W_AHEAD = 2;     // tiles loading ahead of the one at work; two more are being read
+constexpr int W_THREADS = 256;
+
+template <int D>
+constexpr int fwd_smem_bytes() {
+  return 1024 + (W_BM + 2 * W_STAGES * W_BK) * sm90::Tile<D>::ROW_BYTES;  // 1024: alignment
 }
 
-__device__ __forceinline__ uint32_t pack_raw(unsigned short lo, unsigned short hi) {
-  return (static_cast<uint32_t>(hi) << 16) | lo;
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A regs hold
-// (row g | g+8, col 2t..2t+1 | 8+2t..), B regs (k 2t..2t+1 | 8+2t.., col g),
-// C (row g | g+8, col 2t..2t+1). The S accumulators of two adjacent 8-key
-// tiles are therefore exactly the A operand of P V.
 template <int D, bool WITH_LSE>
-__global__ void __launch_bounds__(MMA_THREADS)
-attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ lse, int H, int S, Strides qs, Strides ks, Strides vs,
-                    Strides os, float scale) {
-  constexpr int LD = D + 8;          // padded row: conflict-free fragment loads
-  constexpr int KSTEPS = D / 16;     // k-steps of Q K^T
-  constexpr int NT_S = MMA_BK / 8;   // 8-key tiles of S
-  constexpr int NT_O = D / 8;        // 8-column tiles of O
-  __shared__ __align__(16) __nv_bfloat16 Ks[MMA_BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[MMA_BK * LD];
-  const unsigned short* Vraw = reinterpret_cast<const unsigned short*>(Vs);
+__global__ void __launch_bounds__(W_THREADS, 2)
+attn_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int H, int S, int q_tiles, Strides qs, Strides ks,
+                      Strides vs, Strides os, float scale_log2) {
+  using namespace sm90;
+  using T = Tile<D>;
+  constexpr int KV_BYTES = W_BK * T::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + W_BM * T::ROW_BYTES;  // stage i: K at + 2 i KV_BYTES, then V
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x / q_tiles;
   const long long b = bh / H, h = bh % H;
-  const int r_lo = blockIdx.x * MMA_BQ + warp * 16 + g, r_hi = r_lo + 8;
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const int q0 = (blockIdx.x % q_tiles) * W_BM;
+  const int r_lo = q0 + wg * 64 + warp * 16 + g;
+  const bool active = q0 + wg * 64 < S;  // warpgroup-uniform
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
+  const int n_tiles = (S + W_BK - 1) / W_BK;
 
-  auto qword = [&](int r, int c) -> uint32_t {  // two adjacent bf16 of Q; 0 past S
-    return r < S ? *reinterpret_cast<const uint32_t*>(qb + (long long)r * qs.s + c) : 0u;
+  auto load_kv = [&](int tile) {  // one commit group per call, empty past the last tile
+    if (tile < n_tiles) {
+      const uint32_t dst = kv_s + (tile % W_STAGES) * 2 * KV_BYTES;
+      load_tile_async<D, W_BK, W_THREADS>(dst, kb, ks.s, tile * W_BK, S);
+      load_tile_async<D, W_BK, W_THREADS>(dst + KV_BYTES, vb, vs.s, tile * W_BK, S);
+    }
+    cp_async_commit();
   };
-  uint32_t qa[KSTEPS][4];
+  load_tile_async<D, W_BM, W_THREADS>(q_s, q + b * qs.b + h * qs.h, qs.s, q0, S);
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = qword(r_lo, kk * 16 + 2 * t);
-    qa[kk][1] = qword(r_hi, kk * 16 + 2 * t);
-    qa[kk][2] = qword(r_lo, kk * 16 + 8 + 2 * t);
-    qa[kk][3] = qword(r_hi, kk * 16 + 8 + 2 * t);
-  }
+  for (int i = 0; i < W_AHEAD; ++i) load_kv(i);  // Q rides in the first group
 
-  float oacc[NT_O][4];
+  const uint64_t q_desc = T::desc(q_s + wg * 64 * T::ROW_BYTES);
+  float oacc[D / 2];
 #pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) oacc[nt][0] = oacc[nt][1] = oacc[nt][2] = oacc[nt][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;  // m in base-2 units
 
-  for (int k0 = 0; k0 < S; k0 += MMA_BK) {
-    __syncthreads();  // the previous tile is no longer read
-    constexpr int VECS = MMA_BK * D / 8;  // 16-byte vectors per tile
-    for (int i = threadIdx.x; i < VECS; i += MMA_THREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const int key = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (key < S) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)key * ks.s + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)key * vs.s + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * LD + c]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[r * LD + c]) = vv;
+  // The work on tile j has two phases: A, S = Q K^T and the softmax update
+  // (which first waits for every wgmma in flight, so the O it rescales is
+  // whole), and B, O += P V, issued and left in flight. Warpgroup 0 runs
+  // A(j) B(j) between two block barriers, warpgroup 1 runs B(j-1) A(j): one
+  // warpgroup's softmax overlaps the other's products.
+  uint32_t pa[4][4];  // P in bf16, as A fragments of P V
+  auto phase_a = [&](int j) {
+    const uint32_t k_s = kv_s + (j % W_STAGES) * 2 * KV_BYTES;
+    float sacc[32];
+    fence_regs(sacc);
+    wgmma_fence();
+    product_kmajor<D>(sacc, q_desc, T::desc(k_s));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    fence_regs(oacc);
+
+    if (j * W_BK + W_BK > S) {  // the ragged tail: keys at or past S
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j * W_BK + jb * 8 + 2 * t + e >= S)
+            sacc[4 * jb + e] = sacc[4 * jb + 2 + e] = -INFINITY;
     }
-    __syncthreads();
-
-    float sacc[NT_S][4];
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-      const __nv_bfloat16* kr = &Ks[(j * 8 + g) * LD];
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 2 * t);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8 + 2 * t);
-        mma_bf16(sacc[j], qa[kk], b0, b1);
-      }
-    }
-
-    float tmax_lo = -INFINITY, tmax_hi = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool in = k0 + j * 8 + 2 * t + e < S;  // mask the ragged tail
-        sacc[j][e] = in ? sacc[j][e] * scale : -INFINITY;
-        sacc[j][2 + e] = in ? sacc[j][2 + e] * scale : -INFINITY;
-        tmax_lo = fmaxf(tmax_lo, sacc[j][e]);
-        tmax_hi = fmaxf(tmax_hi, sacc[j][2 + e]);
-      }
+    for (int jb = 0; jb < 8; ++jb) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sacc[4 * jb], sacc[4 * jb + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sacc[4 * jb + 2], sacc[4 * jb + 3]));
     }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {  // the 4 threads of a row
-      tmax_lo = fmaxf(tmax_lo, __shfl_xor_sync(0xffffffffu, tmax_lo, off));
-      tmax_hi = fmaxf(tmax_hi, __shfl_xor_sync(0xffffffffu, tmax_hi, off));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
     }
-    const float mn_lo = fmaxf(m_lo, tmax_lo), mn_hi = fmaxf(m_hi, tmax_hi);
-    const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);  // 0 on the first tile
+    // finite: every tile has a real key
+    const float mn_lo = fmaxf(m_lo, mx_lo * scale_log2), mn_hi = fmaxf(m_hi, mx_hi * scale_log2);
+    const float a_lo = ex2(m_lo - mn_lo), a_hi = ex2(m_hi - mn_hi);  // 0 on the first tile
+    m_lo = mn_lo;
+    m_hi = mn_hi;
     l_lo *= a_lo;
     l_hi *= a_hi;
 #pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      oacc[nt][0] *= a_lo;
-      oacc[nt][1] *= a_lo;
-      oacc[nt][2] *= a_hi;
-      oacc[nt][3] *= a_hi;
+    for (int nt = 0; nt < D / 8; ++nt) {
+      oacc[4 * nt] *= a_lo;
+      oacc[4 * nt + 1] *= a_lo;
+      oacc[4 * nt + 2] *= a_hi;
+      oacc[4 * nt + 3] *= a_hi;
     }
-
-    uint32_t pa[MMA_BK / 16][4];  // P in bf16, as A fragments of P V
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      const float p0 = expf(sacc[j][0] - mn_lo), p1 = expf(sacc[j][1] - mn_lo);
-      const float p2 = expf(sacc[j][2] - mn_hi), p3 = expf(sacc[j][3] - mn_hi);
+    for (int jb = 0; jb < 8; ++jb) {
+      const float p0 = ex2(fmaf(sacc[4 * jb], scale_log2, -mn_lo));  // exactly 0 on masked keys
+      const float p1 = ex2(fmaf(sacc[4 * jb + 1], scale_log2, -mn_lo));
+      const float p2 = ex2(fmaf(sacc[4 * jb + 2], scale_log2, -mn_hi));
+      const float p3 = ex2(fmaf(sacc[4 * jb + 3], scale_log2, -mn_hi));
       l_lo += p0 + p1;
       l_hi += p2 + p3;
-      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      pa[jb / 2][(jb % 2) * 2] = pack_bf16(p0, p1);
+      pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
-    m_lo = mn_lo;
-    m_hi = mn_hi;
+  };
+  auto phase_b = [&](int j) {
+    fence_regs(oacc);
+    wgmma_fence();
+    accumulate_mnmajor<D>(oacc, pa, T::desc(kv_s + (j % W_STAGES) * 2 * KV_BYTES + KV_BYTES));
+    wgmma_commit();
+  };
 
-#pragma unroll
-    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-      const int key = kk * 16 + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < NT_O; ++nt) {
-        const int col = nt * 8 + g;
-        const uint32_t b0 = pack_raw(Vraw[key * LD + col], Vraw[(key + 1) * LD + col]);
-        const uint32_t b1 = pack_raw(Vraw[(key + 8) * LD + col], Vraw[(key + 9) * LD + col]);
-        mma_bf16(oacc[nt], pa[kk], b0, b1);
+  for (int j = 0; j <= n_tiles; ++j) {  // the last round is warpgroup 1's B(n_tiles - 1)
+    cp_async_wait<W_AHEAD - 1>();  // this thread's part of tile j has landed
+    fence_proxy_async();
+    __syncthreads();  // tile j is whole; tile j-2 is no longer read
+    load_kv(j + W_AHEAD);  // into the stage tile j-2 held
+    if (!active) continue;
+    if (wg == 0) {
+      if (j < n_tiles) {
+        phase_a(j);
+        phase_b(j);
       }
+    } else {
+      if (j > 0) phase_b(j - 1);
+      if (j < n_tiles) phase_a(j);
     }
   }
+  wgmma_wait<0>();
+  fence_regs(oacc);
+  cp_async_wait<0>();
+  if (!active) return;
 
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    if (r_lo < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_lo * os.s + c) =
-          __floats2bfloat162_rn(oacc[nt][0] / l_lo, oacc[nt][1] / l_lo);
-    if (r_hi < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_hi * os.s + c) =
-          __floats2bfloat162_rn(oacc[nt][2] / l_hi, oacc[nt][3] / l_hi);
-  }
+  store_rows<D>(o + b * os.b + h * os.h, os.s, oacc, r_lo, S, t, 1.f / l_lo, 1.f / l_hi);
   if constexpr (WITH_LSE) {
-    if (t == 0 && r_lo < S) lse[(long long)bh * S + r_lo] = m_lo + logf(l_lo);
-    if (t == 0 && r_hi < S) lse[(long long)bh * S + r_hi] = m_hi + logf(l_hi);
+    if (t == 0 && r_lo < S) lse[(long long)bh * S + r_lo] = (m_lo + log2f(l_lo)) * LN2;
+    if (t == 0 && r_lo + 8 < S) lse[(long long)bh * S + r_lo + 8] = (m_hi + log2f(l_hi)) * LN2;
   }
 }
 
-template <int D>
-void launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                int S, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                cudaStream_t st) {
-  const dim3 grid((S + MMA_BQ - 1) / MMA_BQ, B * H);
-  const auto kernel = lse ? attn_fwd_mma_kernel<D, true> : attn_fwd_mma_kernel<D, false>;
-  kernel<<<grid, MMA_THREADS, 0, st>>>(
+template <int D, bool WITH_LSE>
+cudaError_t launch_wgmma_as(const void* q, const void* k, const void* v, void* o, float* lse,
+                            int B, int H, int S, Strides qs, Strides ks, Strides vs, Strides os,
+                            float scale, cudaStream_t st) {
+  const auto kernel = attn_fwd_wgmma_kernel<D, WITH_LSE>;
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem_bytes<D>());
+  if (attr != cudaSuccess) return attr;
+  const int q_tiles = (S + W_BM - 1) / W_BM;
+  kernel<<<(unsigned)q_tiles * B * H, W_THREADS, fwd_smem_bytes<D>(), st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, S, qs, ks,
-      vs, os, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, S, q_tiles,
+      qs, ks, vs, os, scale * sm90::LOG2E);
+  return cudaGetLastError();
 }
 
 template <int D>
-void launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                int S, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                cudaStream_t st) {
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                         int H, int S, Strides qs, Strides ks, Strides vs, Strides os,
+                         float scale, cudaStream_t st) {
+  return lse ? launch_wgmma_as<D, true>(q, k, v, o, lse, B, H, S, qs, ks, vs, os, scale, st)
+             : launch_wgmma_as<D, false>(q, k, v, o, lse, B, H, S, qs, ks, vs, os, scale, st);
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int H, int S, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                       cudaStream_t st) {
+  const unsigned grid = (unsigned)((S + BQ - 1) / BQ) * B * H;
   const auto kernel = lse ? attn_fwd_kernel<D, true> : attn_fwd_kernel<D, false>;
   kernel<<<grid, BQ, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, H, S, qs, ks, vs, os, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -324,29 +357,23 @@ extern "C" {
 // must be contiguous; for bfloat16 the pointers must be 16-byte aligned and
 // the strides multiples of 8 (checked by the Python wrapper). lse is
 // nullptr or a float32 (B, H, S) contiguous buffer for the row log-sum-exp.
-// Returns cudaGetLastError() after the launch.
+// Returns the first CUDA error of the launch (cudaGetLastError()), or 0.
 int attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
                   int B, int H, int S, int D, long long q_sb, long long q_sh, long long q_ss,
                   long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                   long long v_sh, long long v_ss, long long o_sb, long long o_sh,
                   long long o_ss, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || B * H > 65535) return cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || S <= 0) return cudaErrorInvalidValue;
+  // every grid is one dimension of (batch*head, row tile) pairs, 32 rows at least
+  if ((long long)B * H * ((S + 31) / 32) > 0x7fffffffLL) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && D == 64) {
-    launch_f32<64>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
-  } else if (dtype == 0 && D == 32) {
-    launch_f32<32>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
-  } else if (dtype == 1 && D == 64) {
-    launch_mma<64>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
-  } else if (dtype == 1 && D == 32) {
-    launch_mma<32>(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (!((dtype == 0 || dtype == 1) && (D == 32 || D == 64))) return cudaErrorInvalidValue;
+  const auto launch = dtype == 0 ? (D == 64 ? launch_f32<64> : launch_f32<32>)
+                                 : (D == 64 ? launch_wgmma<64> : launch_wgmma<32>);
+  return launch(q, k, v, o, l, B, H, S, qs, ks, vs, os, scale, st);
 }
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with nvcc at first use; load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into
-``build/amuse_tpu_torch/lib<name>-<hash>.so`` (the hash covers the source and
-the flags, so an edited source rebuilds) with
+``build/amuse_tpu_torch/lib<name>-<hash>.so`` (the hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source rebuilds) with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
@@ -52,6 +52,8 @@ def sources() -> list[str]:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -87,8 +87,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype == torch.bfloat16 and not all(_aligned(t) for t in (q, k, v)):
         raise ValueError("bfloat16 q, k, v need 16-byte aligned rows (pointers aligned to "
                          "16 bytes, batch/head/seq strides multiples of 8)")
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("B * H must be at most 65535")
 
 
 def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -156,10 +154,14 @@ def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         do = do.contiguous()
     if o.shape != q.shape or o.dtype != q.dtype or o.stride(-1) != 1 or do.shape != q.shape:
         raise ValueError("o and do must match q's shape and type with a contiguous head dim")
+    if q.dtype == torch.bfloat16 and not _aligned(o):
+        raise ValueError("bfloat16 o needs 16-byte aligned rows, as K1 writes it")
     if lse is None or lse.shape != (b, h, s) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError("lse must be K1's float32 (B, H, S) contiguous log-sum-exp")
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # scratch of K2's first pass: per row the log-sum-exp and Delta = rowsum(dO * O),
+    # the sequence padded to the 64-row tiles the other passes stream
+    stats = torch.empty((b, h, 2, -(-s // 64) * 64), dtype=torch.float32, device=q.device)
     lib = _build.load("attention_bwd")
     fn = lib.attention_bwd
     fn.restype = ctypes.c_int
@@ -168,7 +170,7 @@ def mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     strides = (ctypes.c_longlong * 24)(
         *(st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, s, d, strides, 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "attention_bwd", rc)

@@ -111,6 +111,137 @@ def test_attention_bwd_kernel_matches_plain(cuda, dtype, shape):
             assert err <= K2_REL[dtype] * ref.abs().max().item(), (i, err)
 
 
+# sequence lengths at the edges of the kernels' 64-, 128- and 192-row tiles,
+# the AST length and its multiple of 128
+SWEEP = [1, 63, 64, 65, 127, 128, 129, 257, 1214, 1280]
+
+
+def _fused_qkv(cuda, dtype, s, d, seed, offset=0):
+    """(1, S, 3, 2, D) fused projection as a view at ``offset`` elements into
+    its storage, and dO (1, 2, S, D)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    flat = torch.randn(offset + s * 3 * 2 * d, generator=g, device=cuda).to(dtype)
+    qkv = flat[offset:].view(1, s, 3, 2, d)
+    return qkv, torch.randn((1, 2, s, d), generator=g, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_sweep(cuda, dtype, s, d):
+    """K1 with and without the row log-sum-exp, on strided views of a fused
+    qkv tensor, against its plain version (largest error, and the relative L2
+    error, which a long sequence's small outputs do not hide) and
+    torch.logsumexp; the two instantiations give the same output bit for bit."""
+    from amuse_tpu_torch.ops.attention import _launch_fwd, mha, mha_reference
+
+    qkv, _ = _fused_qkv(cuda, dtype, s, d, seed=s + d)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = mha(q, k, v)
+    out_lse, lse = _launch_fwd(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    plain = mha_reference(q, k, v).float()
+    torch.testing.assert_close(out.float(), plain, atol=3e-2 if bf16 else 2e-5, rtol=0)
+    assert ((out.float() - plain).norm() / plain.norm()).item() <= (6e-3 if bf16 else 1e-5)
+    ref = torch.logsumexp((q.float() @ k.float().transpose(-1, -2)) / d ** 0.5, dim=-1)
+    torch.testing.assert_close(lse, ref, atol=1e-4 if bf16 else 1e-5, rtol=1e-5)
+    assert torch.equal(out, out_lse)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_sweep(cuda, dtype, s, d):
+    """K2 against its plain version over the tile-edge lengths, K2_REL of
+    each gradient's largest entry plus 1e-5: at S = 1 dq and dk are exactly 0
+    in the plain version (dP - rowsum(dP * P) cancels) and rounding noise of
+    dP - Delta in the kernel. Two launches on the same inputs are bit-equal
+    (no atomics)."""
+    from amuse_tpu_torch.ops.attention import _launch_fwd, mha_bwd, mha_bwd_reference
+
+    qkv, do = _fused_qkv(cuda, dtype, s, d, seed=2 * s + d)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out, lse = _launch_fwd(q, k, v, with_lse=True)
+    got, again = mha_bwd(q, k, v, out, do, lse), mha_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert got.shape == (1, s, 3, 2, d) and got.is_contiguous() and torch.equal(got, again)
+    for i, ref in enumerate(mha_bwd_reference(q, k, v, do)):
+        err = (got[:, :, i].transpose(1, 2).float() - ref.float()).abs().max().item()
+        assert err <= K2_REL[dtype] * ref.float().abs().max().item() + 1e-5, ("qkv"[i], err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_take_many_heads(cuda, dtype):
+    """Every grid is one dimension of (batch*head, row tile) pairs: B * H
+    above 65535, a grid's second dimension, runs through K1 and K2. Outputs
+    of a 3-key softmax reach |v| ~ 4, where two bf16 ulps are 0.031: the bf16
+    output gets torch.testing's relative 1.6e-2 beside the absolute 3e-2."""
+    from amuse_tpu_torch.ops.attention import mha_bwd_reference, mha_reference, mha_train
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn((35000, 3, 3, 2, 32), generator=g, device=cuda).to(dtype)
+    do = torch.randn((35000, 2, 3, 32), generator=g, device=cuda).to(dtype)
+    leaf = qkv.clone().requires_grad_()
+    out = mha_train(leaf)
+    (grad,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), mha_reference(q, k, v).float(),
+                               atol=3e-2 if bf16 else 2e-5, rtol=1.6e-2 if bf16 else 0)
+    for i, ref in enumerate(mha_bwd_reference(q, k, v, do)):
+        err = (grad[:, :, i].transpose(1, 2).float() - ref.float()).abs().max().item()
+        assert err <= K2_REL[dtype] * ref.float().abs().max().item(), ("qkv"[i], err)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 8), (torch.bfloat16, 4096),
+                                          (torch.float32, 3)])
+def test_attention_kernels_take_offset_views(cuda, dtype, offset):
+    """q, k, v as strided views that start inside their storage (bf16: at a
+    16-byte boundary; float32: anywhere), through mha_train and its backward."""
+    from amuse_tpu_torch.ops.attention import mha_bwd_reference, mha_reference, mha_train
+
+    qkv, do = _fused_qkv(cuda, dtype, 200, 64, seed=5, offset=offset)
+    assert qkv.storage_offset() == offset
+    leaf = qkv.detach().requires_grad_()
+    out = mha_train(leaf)
+    (grad,) = torch.autograd.grad(out, leaf, do)
+    torch.cuda.synchronize()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    torch.testing.assert_close(out.float(), mha_reference(q, k, v).float(),
+                               atol=3e-2 if dtype == torch.bfloat16 else 2e-5, rtol=0)
+    for i, ref in enumerate(mha_bwd_reference(q, k, v, do)):
+        err = (grad[:, :, i].transpose(1, 2).float() - ref.float()).abs().max().item()
+        assert err <= K2_REL[dtype] * ref.float().abs().max().item(), ("qkv"[i], err)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    """A misaligned bf16 view, a head dim the kernels lack, another type, a
+    missing or misshapen log-sum-exp: the wrappers raise, nothing falls back."""
+    from amuse_tpu_torch.ops.attention import _launch_fwd, mha, mha_bwd, mha_train
+
+    qkv, do = _fused_qkv(cuda, torch.bfloat16, 70, 64, seed=6, offset=1)  # 2 bytes in
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mha(q, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mha_train(qkv)
+    with pytest.raises(ValueError, match="head dim"):
+        mha_train(torch.zeros((1, 8, 3, 2, 48), device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mha_train(torch.zeros((1, 8, 3, 2, 64), device=cuda, dtype=torch.float16))
+    qkv, do = _fused_qkv(cuda, torch.bfloat16, 70, 64, seed=6)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out, lse = _launch_fwd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        mha_bwd(q, k, v, out, do, None)
+    with pytest.raises(ValueError, match="lse"):
+        mha_bwd(q, k, v, out, do, lse[:, :, :-1])
+    with pytest.raises(ValueError, match="o and do"):
+        mha_bwd(q, k, v, out[:, :, :-1], do, lse)
+
+
 def test_attention_forward_refuses_grad_on_cuda(cuda):
     """mha on CUDA would return a tensor with no grad_fn: it refuses inputs
     that need a gradient and points to mha_train."""

@@ -30,6 +30,10 @@ from amuse_tpu_torch.ops import attention as tatt
 from amuse_tpu_torch.ops import denoiser_kernel as tdk
 
 
+# sequence lengths at the edges of the CUDA kernels' 64- and 128-row tiles
+TILE_EDGES = [1, 63, 64, 65, 127, 128, 129, 257]
+
+
 def _qkv(seed, shape):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
@@ -59,6 +63,26 @@ class TestAttentionPlain:
         np.testing.assert_allclose(mine.float().numpy(), ref, atol=3e-2)
         np.testing.assert_allclose(mine.float().numpy(), pallas, atol=3e-2)
 
+    @pytest.mark.parametrize("d", [32, 64])
+    @pytest.mark.parametrize("s", TILE_EDGES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_tile_edge_lengths_match_jax(self, dtype, s, d):
+        """Sequence lengths around the 64- and 128-row tiles of the CUDA
+        kernels (one row, one short of a tile, a tile, one over, several
+        tiles and a ragged tail): the plain version against the JAX
+        reference and the Pallas kernel in interpret mode. float32 atol 2e-5,
+        bfloat16 atol 3e-2 (tests/test_ops.py's bounds)."""
+        q, k, v = _qkv(1000 * d + s, (1, 2, s, d))
+        tdtype, jdtype, atol = ((torch.float32, jnp.float32, 2e-5) if dtype == "float32"
+                                else (torch.bfloat16, jnp.bfloat16, 3e-2))
+        mine = tatt.mha(*(torch.from_numpy(a).to(tdtype) for a in (q, k, v)))
+        assert mine.dtype == tdtype and mine.shape == (1, 2, s, d)
+        jq, jk, jv = (jnp.asarray(a, jdtype) for a in (q, k, v))
+        ref = np.asarray(mha_reference(jq, jk, jv), np.float32)
+        pallas = np.asarray(mha_pallas(jq, jk, jv, interpret=True), np.float32)
+        np.testing.assert_allclose(mine.float().numpy(), ref, atol=atol)
+        np.testing.assert_allclose(mine.float().numpy(), pallas, atol=atol)
+
     def test_strided_views_and_cpu_counter(self):
         """The ViT block feeds q/k/v as strided views of the fused qkv output;
         on CPU tensors the wrapper runs the plain version and launches nothing."""
@@ -70,6 +94,18 @@ class TestAttentionPlain:
         ref = tatt.mha_reference(q.contiguous(), k.contiguous(), v.contiguous())
         torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
         assert tatt.mha.launches == before == 0
+
+
+def test_many_heads_pass_the_checks_and_match_jax():
+    """The kernels' grids are one dimension of (batch*head, row tile) pairs,
+    so B * H is not held to a grid's second dimension (65535): the wrappers'
+    checks take 70,000 heads, and the plain version agrees with the JAX
+    reference there (float32, atol 2e-5)."""
+    q, k, v = _qkv(9, (35000, 2, 2, 32))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tatt._check(tq, tk, tv)
+    ref = np.asarray(mha_reference(*(jnp.asarray(a) for a in (q, k, v))))
+    np.testing.assert_allclose(tatt.mha(tq, tk, tv).numpy(), ref, atol=2e-5)
 
 
 @pytest.fixture(scope="module")

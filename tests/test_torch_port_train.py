@@ -103,6 +103,30 @@ class TestAttentionBackward:
             np.testing.assert_allclose(p.float().numpy(), w, atol=1 / 128)
             np.testing.assert_allclose(a.float().numpy(), w, atol=2e-2)
 
+    @pytest.mark.parametrize("d", [32, 64])
+    @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 257])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_tile_edge_lengths_match_jax(self, dtype, s, d):
+        """Sequence lengths around the 64-, 128- and 192-row tiles of the
+        CUDA passes: mha_train's plain path (autograd) and mha_bwd_reference
+        against jax.vjp through the JAX kernel pair in interpret mode.
+        float32 atol 2e-5; bfloat16 as test_bf16_matches_jax, with the ulp
+        taken at each gradient's largest entry (one bf16 ulp of it, at least
+        1/128, for the plain version; 2e-2 of it for autograd, which rounds
+        dP to bf16 as well)."""
+        f32 = dtype == "float32"
+        want, auto, plain = self._case((1, 2, s, d), jnp.float32 if f32 else jnp.bfloat16,
+                                       torch.float32 if f32 else torch.bfloat16)
+        for w, a, p in zip(want, auto, plain):
+            assert p.shape == (1, 2, s, d) and np.isfinite(w).all()
+            if f32:
+                np.testing.assert_allclose(a.numpy(), w, atol=2e-5)
+                np.testing.assert_allclose(p.numpy(), w, atol=2e-5)
+            else:
+                top = max(1.0, float(np.abs(w).max()))
+                np.testing.assert_allclose(p.float().numpy(), w, atol=top / 128)
+                np.testing.assert_allclose(a.float().numpy(), w, atol=2e-2 * top)
+
     def test_wrapper_layout_and_cpu_counters(self):
         """mha_bwd returns one (B, S, 3, H, D) gradient of the fused qkv;
         CPU tensors launch no kernel."""
