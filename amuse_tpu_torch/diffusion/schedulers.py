@@ -95,6 +95,20 @@ def ddim_coefficients(schedule: DiffusionSchedule, timestep: int, num_inference_
     ])
 
 
+def ddim_coefficient_table(schedule: DiffusionSchedule,
+                           num_inference_steps: int = 50) -> torch.Tensor:
+    """-> float32 (steps, 4): ``ddim_coefficients`` of every inference timestep
+    in sampling order (the final step's alpha is alphas_cumprod[0]), in one
+    vectorised expression."""
+    acp = schedule.alphas_cumprod
+    ts = ddim_timesteps(schedule, num_inference_steps)
+    prev = ts - schedule.num_train_timesteps // num_inference_steps
+    alpha_t = acp[ts]
+    alpha_prev = torch.where(prev >= 0, acp[prev.clamp(min=0)], acp[0])
+    return torch.stack([1.0 / torch.sqrt(alpha_t), torch.sqrt(1.0 - alpha_t),
+                        torch.sqrt(alpha_prev), torch.sqrt(1.0 - alpha_prev)], dim=1)
+
+
 def ddim_step(
     schedule: DiffusionSchedule,
     model_output: torch.Tensor,  # predicted epsilon

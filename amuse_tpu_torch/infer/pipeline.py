@@ -27,7 +27,12 @@ from amuse_tpu_torch.diffusion.schedulers import make_schedule
 from amuse_tpu_torch.models.ast import ASTConfig, ASTEncoder, ast_features
 from amuse_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from amuse_tpu_torch.models.vae import MotionPrior, PriorConfig
-from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_fused, pack_denoiser
+from amuse_tpu_torch.ops.denoiser_kernel import (
+    SamplerWeights,
+    ddim_sample_fused,
+    pack_denoiser,
+    schedule_conditioning,
+)
 
 ENCODERS = ("con", "emo", "sty")  # stacking order of the AST encoders
 
@@ -99,7 +104,11 @@ class GesturePipeline:
         self.schedule = make_schedule()
         self.prior = _load(MotionPrior(prior_cfg), params.prior, self.device)
         self.denoiser = _load(Denoiser(denoiser_cfg), params.denoiser, self.device)
-        self.packed_denoiser = pack_denoiser(self.denoiser)
+        # the sampler kernel's weights (their per-CTA runs packed at first use
+        # of each cluster size) and per-schedule conditioning, once
+        self.sampler_weights = SamplerWeights(pack_denoiser(self.denoiser))
+        self.sampler_conditioning = schedule_conditioning(self.denoiser, self.schedule,
+                                                          num_inference_steps)
         # the three encoders' backbones, stacked once (label heads dropped)
         self.ast_params = _stacked_ast(params.ast, ast_cfg, dtype, self.device)
 
@@ -121,7 +130,7 @@ class GesturePipeline:
         return ddim_sample_fused(
             self.denoiser, self.schedule, con, emo, sty, self.num_inference_steps,
             initial_latents=initial_latents, generator=generator,
-            packed=self.packed_denoiser,
+            packed=self.sampler_weights, conditioning=self.sampler_conditioning,
         )
 
     @torch.inference_mode()

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
     python3 chip_smoke.py --only-k1  # build, then the K1 phase alone
     python3 chip_smoke.py --only-k2  # build, then the K2 phase alone
+    python3 chip_smoke.py --only-k3  # build, then K3 timed at N = 1, 4, 8 and 32 alone
     python3 chip_smoke.py --only-wav-to-motion  # build, then wav_to_motion at N = 1 and 4 alone
     python3 chip_smoke.py --only-train-step  # build, then the flagship train step alone
     python3 chip_smoke.py --only-train-step --train-steps 12  # with 12 timed steps, not 4
@@ -61,8 +62,14 @@ K1_TOL_F32 = 2e-5
 K1_TOL_AST = 8e-3
 K1_REL_L2 = {"float32": 1e-5, "bfloat16": 6e-3}  # readings on an H100: 2.6e-7, 3.1e-3
 K1_LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
-K3_TOL = 2e-3  # 50 float32 steps (tests/test_denoiser_kernel.py:47)
-K3_TOL_STEP = 2e-4  # one step (tests/test_denoiser_kernel.py:68)
+# K3 against the plain loop, float32: one step (tests/test_denoiser_kernel.py:68);
+# 50 steps at the flagship dims, 4.6 times the largest reading on an H100
+# (1.7e-5 to 4.3e-5), below a plain loop whose products run in TF32 (its
+# reading is printed beside it); 50 steps at the small widths, where the
+# readings reach 3.3e-4 (tests/test_denoiser_kernel.py:47)
+K3_TOL_STEP = 2e-4
+K3_TOL = 2e-4
+K3_TOL_SMALL = 2e-3
 PIPE_TOL = 1e-3  # small-width pipeline, kernels vs plain, float32
 # K2: max |kernel - plain| <= rel * max |plain|, per gradient. float32:
 # summation order and Delta = rowsum(dO * O) in place of rowsum(dP * P);
@@ -145,6 +152,11 @@ def _kernel_name(ptxas_line: str) -> str:
     return f"{sym[m.end():start]}<{','.join(args)}>"
 
 
+# kernels that must build without spills: the wgmma attention kernels (the
+# float32 K2 kernels spill by design) and the sampler
+CLEAN_KERNELS = ("wgmma", "ddim_sampler")
+
+
 def phase_build():
     from amuse_tpu_torch.ops import _build
 
@@ -160,17 +172,17 @@ def phase_build():
             kernel = _kernel_name(ln)
         elif "registers" in ln:
             ptxas.append(f"{kernel}: {ln.split(':', 1)[1].strip()}")
-        elif "spill stores" in ln and "wgmma" in kernel and any(
+        elif "spill stores" in ln and any(k in kernel for k in CLEAN_KERNELS) and any(
                 int(n) for n in re.findall(r"(\d+) bytes", ln)):
             faults.append(f"{kernel} spills: {ln.strip()}")
         if "wgmma.mma_async instructions are serialized" in ln:
             faults.append(ln.strip()[:300])
     emit({"phase": "build", "seconds": seconds,
           "sources": {n: r["seconds"] for n, r in results.items()}, "ptxas": ptxas,
-          "wgmma_faults": faults})
-    # a wgmma kernel that spills, or whose wgmma pipeline ptxas had to
-    # serialise, still computes the right numbers and is quietly slow
-    check(not faults, "the wgmma kernels did not build clean:\n" + "\n".join(faults))
+          "faults": faults})
+    # a kernel that spills, or whose wgmma pipeline ptxas had to serialise,
+    # still computes the right numbers and is quietly slow
+    check(not faults, "the kernels did not build clean:\n" + "\n".join(faults))
 
 
 def phase_attention(rng_seed: int = 0) -> dict:
@@ -245,64 +257,194 @@ def _sampler_flops(n: int, steps: int, t: int, d: int, ff: int, layers: int) -> 
     return float(n * steps * per_step)
 
 
+SMALL_DENOISER = {"latent_dim": 32, "ff_size": 64, "num_layers": 3, "num_heads": 2,
+                  "cond_dim": 24}
+
+
+def _k3_callables(den, sched, con, emo, sty, x0, steps: int) -> tuple:
+    """(the launch alone, ddim_sample_fused as the pipeline calls it, cluster
+    size). Also takes a checkout from before the cluster kernel (one block per
+    window, the conditioning rebuilt per call; cluster None), so that
+    ``--only-k3`` times the two checkouts in turns."""
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    if not hasattr(dk, "pack_for_cluster"):
+        packed = dk.pack_denoiser(den)
+        conditioning = dk.precompute_conditioning(den, sched, con, emo, sty, steps)
+        return (lambda: dk.launch_sampler(packed, conditioning, x0, den.cfg),
+                lambda: dk.ddim_sample_fused(den, sched, con, emo, sty, steps,
+                                             initial_latents=x0, packed=packed), None)
+    weights = dk.SamplerWeights(dk.pack_denoiser(den))
+    pack = weights.for_cluster(dk.cluster_for(den.cfg, x0.shape[0]))
+    sched_cond = dk.schedule_conditioning(den, sched, steps)
+    cond = dk.condition_tokens(den, con, emo, sty)
+    return (lambda: dk.launch_sampler(pack, sched_cond, cond, x0, den.cfg),
+            lambda: dk.ddim_sample_fused(den, sched, con, emo, sty, steps, initial_latents=x0,
+                                         packed=weights, conditioning=sched_cond), pack.cluster)
+
+
+def _flagship_denoiser():
+    import torch
+
+    from amuse_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+
+    torch.manual_seed(0)
+    return Denoiser(DenoiserConfig()).cuda().eval()
+
+
+def phase_k3_timing() -> list:
+    """K3 at the flagship denoiser dims, 50 steps, 3 condition streams, at
+    N = 1, 4, 8 and 32 windows (32 is more clusters of 8 than the card runs
+    at once, so ``cluster_for`` takes a smaller size): the launch alone
+    (``ms``) and through ``ddim_sample_fused`` as the pipeline calls it
+    (``wrapper_ms``: the per-call condition tokens added),
+    each held bit-equal to the other and to the plain loop within K3_TOL, the
+    plain loop timed at N = 1, the bound from this call's shapes."""
+    import torch
+
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_reference, pack_denoiser
+
+    den, sched, steps = _flagship_denoiser(), make_schedule(), 50
+    cfg = den.cfg
+    weight_bytes = sum(t.numel() * 4 for t in pack_denoiser(den))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for n in (1, 4, 8, 32):
+        con, emo, sty = (torch.randn((n, cfg.cond_dim), generator=g, device="cuda")
+                         for _ in range(3))
+        x0 = torch.randn((n, 1, cfg.latent_dim), generator=g, device="cuda")
+        kernel, wrapper, cluster = _k3_callables(den, sched, con, emo, sty, x0, steps)
+        out = kernel()
+        plain = lambda: ddim_sample_reference(den, sched, con, emo, sty, x0, steps)  # noqa: E731
+        err = max_err(out, plain())
+        check(torch.equal(wrapper(), out), f"K3 launched alone differs from its wrapper at N={n}")
+        check(err <= K3_TOL, f"K3 disagrees with its plain loop at N={n}: {err} > {K3_TOL}")
+        flops = _sampler_flops(n, steps, 5, cfg.latent_dim, cfg.ff_size, cfg.num_layers)
+        nbytes = weight_bytes + 4.0 * (steps * (cfg.latent_dim + 4) + n * 5 * cfg.latent_dim)
+        row = {"windows": n, "steps": steps, "real_tokens": 5, "cluster": cluster,
+               "max_abs_err": err, "tolerance": K3_TOL,
+               "ms": cuda_ms(kernel, iters=10, warmup=2),
+               "wrapper_ms": cuda_ms(wrapper, iters=10, warmup=2),
+               "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+               "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES
+               else "bytes"}
+        row["ms_per_step"] = row["ms"] / steps
+        if n == 1:
+            row["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+        rows.append(row)
+    emit({"phase": "sampler_k3_timing", "windows": rows})
+    return rows
+
+
 def phase_sampler() -> dict:
-    """K3 against the plain DDIM loop at the flagship denoiser dims."""
+    """K3 against the plain DDIM loop: at the flagship denoiser dims (N = 1, 2
+    and 8; 1 and 50 steps; 3, 2, 1 and no condition streams) and at small
+    widths (d 32, ff 64, 3 layers, 2 heads), which run the same cluster
+    kernel; two launches bit-equal. Then its launch plan at N = 1, the
+    barriers one launch passed, the TF32 control of K3_TOL, and
+    phase_k3_timing."""
     import torch
 
     from amuse_tpu_torch.diffusion.schedulers import make_schedule
     from amuse_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
-    from amuse_tpu_torch.ops.denoiser_kernel import (
-        ddim_sample_fused,
-        ddim_sample_reference,
-        launch_sampler,
-        pack_denoiser,
-        precompute_conditioning,
-    )
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
 
-    torch.manual_seed(0)
-    cfg = DenoiserConfig()
-    den = Denoiser(cfg).cuda().eval()
     sched = make_schedule()
-    packed = pack_denoiser(den)
+    dens = {"flagship": _flagship_denoiser()}
+    torch.manual_seed(3)
+    dens["small"] = Denoiser(DenoiserConfig(**SMALL_DENOISER)).cuda().eval()
     g = torch.Generator(device="cuda").manual_seed(1)
-    weight_bytes = sum(t.numel() * 4 for t in packed)
     cases = []
-    for n, steps, streams, tol in ((1, 1, 3, K3_TOL_STEP), (2, 50, 1, K3_TOL),
-                                   (1, 50, 3, K3_TOL), (8, 50, 3, K3_TOL)):
-        con, emo, sty = (torch.randn((n, cfg.cond_dim), generator=g, device="cuda")
-                         for _ in range(3))
-        emo, sty = (emo, sty) if streams == 3 else (None, None)
+    for dims, n, steps, streams, tol in (
+            ("flagship", 1, 1, 3, K3_TOL_STEP), ("flagship", 2, 50, 1, K3_TOL),
+            ("flagship", 1, 50, 3, K3_TOL), ("flagship", 8, 50, 3, K3_TOL),
+            ("flagship", 2, 50, 2, K3_TOL), ("flagship", 2, 50, 0, K3_TOL),
+            ("flagship", 2, 1, 0, K3_TOL_STEP), ("small", 2, 1, 3, K3_TOL_STEP),
+            ("small", 2, 50, 3, K3_TOL_SMALL), ("small", 3, 50, 2, K3_TOL_SMALL),
+            ("small", 3, 50, 0, K3_TOL_SMALL)):
+        den = dens[dims]
+        cfg = den.cfg
+        a, b, c = (torch.randn((n, cfg.cond_dim), generator=g, device="cuda")
+                   for _ in range(3))
+        con, emo, sty = {3: (a, b, c), 2: (a, None, c), 1: (a, None, None),
+                         0: (None, None, None)}[streams]
         x0 = torch.randn((n, 1, cfg.latent_dim), generator=g, device="cuda")
-        run = lambda: ddim_sample_fused(den, sched, con, emo, sty, steps,  # noqa: E731
-                                        initial_latents=x0, packed=packed)
-        plain = lambda: ddim_sample_reference(den, sched, con, emo, sty, x0, steps)  # noqa: E731
-        out, ref = run(), plain()
+        weights = dk.SamplerWeights(dk.pack_denoiser(den))
+        pack = weights.for_cluster(dk.cluster_for(cfg, n))
+        sched_cond = dk.schedule_conditioning(den, sched, steps)
+        if streams:
+            cond = dk.condition_tokens(den, con, emo, sty)
+        else:  # latent and time tokens alone: launched directly
+            cond = torch.empty((n, 0, cfg.latent_dim), device="cuda")
+        out = dk.launch_sampler(pack, sched_cond, cond, x0, cfg)
+        again = dk.launch_sampler(pack, sched_cond, cond, x0, cfg)
+        ref = dk.ddim_sample_reference(den, sched, con, emo, sty, x0, steps)
         torch.cuda.synchronize()
         err = max_err(out, ref)
-        check(torch.isfinite(out).all().item(), f"K3 output not finite at N={n}")
-        check(err <= tol, f"K3 disagrees with its plain loop at N={n}, {steps} steps, "
-                          f"{streams} streams: {err} > {tol}")
-        case = {"windows": n, "steps": steps, "real_tokens": 2 + streams, "max_abs_err": err,
-                "tolerance": tol}
-        if steps == 50 and streams == 3:
-            flops = _sampler_flops(n, steps, 5, cfg.latent_dim, cfg.ff_size, cfg.num_layers)
-            nbytes = weight_bytes + 4.0 * (steps * (cfg.latent_dim + 4) + n * 5 * cfg.latent_dim)
-            # ms: the kernel launch alone; wrapper_ms adds the per-call
-            # conditioning (time MLP, condition projections, coefficients)
-            conditioning = precompute_conditioning(den, sched, con, emo, sty, steps)
-            kernel = lambda: launch_sampler(packed, conditioning, x0, cfg)  # noqa: E731
-            check(torch.equal(kernel(), out), "K3 launched alone differs from its wrapper")
-            case.update(
-                ms=cuda_ms(kernel, iters=5, warmup=1),
-                wrapper_ms=cuda_ms(run, iters=5, warmup=1),
-                plain_ms=cuda_ms(plain, iters=2, warmup=1),
-                bound_ms=max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
-                bound_by="operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES
-                else "bytes",
-            )
-        cases.append(case)
-    emit({"phase": "sampler_k3", "cases": cases})
-    return next(c for c in cases if c["windows"] == 1 and c["steps"] == 50)
+        at = f"{dims} dims, N={n}, {steps} steps, {2 + cond.shape[1]} real tokens"
+        check(torch.isfinite(out).all().item(), f"K3 output not finite at {at}")
+        check(err <= tol, f"K3 disagrees with its plain loop at {at}: {err} > {tol}")
+        check(torch.equal(out, again), f"two launches of K3 differ at {at}")
+        if streams:
+            fused = dk.ddim_sample_fused(den, sched, con, emo, sty, steps, initial_latents=x0,
+                                         packed=weights, conditioning=sched_cond)
+            check(torch.equal(fused, out), f"K3 through ddim_sample_fused differs at {at}")
+        cases.append({"dims": dims, "windows": n, "steps": steps,
+                      "real_tokens": 2 + cond.shape[1], "cluster": pack.cluster,
+                      "max_abs_err": err, "tolerance": tol})
+    den = dens["flagship"]
+    cfg = den.cfg
+    plan = dk.sampler_plan(cfg.latent_dim, cfg.ff_size, cfg.num_heads, cfg.num_layers,
+                           dk.cluster_for(cfg, 1))
+    emit({"phase": "sampler_k3", "cases": cases, "plan": plan,
+          "barriers": _k3_barriers(den, sched, 50),
+          "tf32_control": _k3_tf32_control(den, sched, 50)})
+    return phase_k3_timing()[0]
+
+
+def _k3_barriers(den, sched, steps: int) -> dict:
+    """What one launch at N = 1 (flagship, 5 real tokens) passed, counted by
+    the kernel's first CTA: cluster barriers, exchanges (waits on a receive
+    mbarrier that the cluster's st.async stores complete) and block
+    barriers, in all and per step."""
+    import torch
+
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    cfg = den.cfg
+    g = torch.Generator(device="cuda").manual_seed(4)
+    con, emo, sty = (torch.randn((1, cfg.cond_dim), generator=g, device="cuda")
+                     for _ in range(3))
+    x0 = torch.randn((1, 1, cfg.latent_dim), generator=g, device="cuda")
+    pack = dk.pack_for_cluster(dk.pack_denoiser(den), dk.cluster_for(cfg, 1))
+    stats = torch.zeros(3, dtype=torch.int32, device="cuda")
+    dk.launch_sampler(pack, dk.schedule_conditioning(den, sched, steps),
+                      dk.condition_tokens(den, con, emo, sty), x0, cfg, stats=stats)
+    counts = dict(zip(("cluster_barriers", "exchanges", "block_barriers"), stats.tolist()))
+    return {"cluster": pack.cluster, "steps": steps, "per_launch": counts,
+            "per_step": {k: v / steps for k, v in counts.items()}}
+
+
+def _k3_tf32_control(den, sched, steps: int) -> dict:
+    """The plain loop with its products in TF32 against the same loop in
+    float32 (flagship, N = 2, 5 real tokens): what K3_TOL must refuse."""
+    import torch
+
+    from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_reference
+
+    cfg = den.cfg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    con, emo, sty = (torch.randn((2, cfg.cond_dim), generator=g, device="cuda")
+                     for _ in range(3))
+    x0 = torch.randn((2, 1, cfg.latent_dim), generator=g, device="cuda")
+    ref = ddim_sample_reference(den, sched, con, emo, sty, x0, steps)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = ddim_sample_reference(den, sched, con, emo, sty, x0, steps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return {"max_abs_err": max_err(tf32, ref), "tolerance": K3_TOL}
 
 
 def _chunks(n: int, seed: int):
@@ -821,6 +963,9 @@ def main(argv=None) -> int:
                              "line (to time K1 of two checkouts on one card)")
     parser.add_argument("--only-k2", action="store_true",
                         help="the same for the K2 phase; with --only-k1, both")
+    parser.add_argument("--only-k3", action="store_true",
+                        help="the same for K3's timing at N = 1, 4, 8 and 32 (also runs in a "
+                             "checkout from before the cluster kernel)")
     parser.add_argument("--only-wav-to-motion", action="store_true",
                         help="the same for wav_to_motion at the flagship widths with its trace")
     parser.add_argument("--only-train-step", action="store_true",
@@ -852,11 +997,14 @@ def main(argv=None) -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     phase_build()
-    if args.only_k1 or args.only_k2 or args.only_wav_to_motion or args.only_train_step:
+    if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
+            or args.only_train_step):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
             phase_attention_k2()
+        if args.only_k3:
+            phase_k3_timing()
         if args.only_wav_to_motion:
             phase_main_path()
         if args.only_train_step:
@@ -882,8 +1030,10 @@ def main(argv=None) -> int:
         {"name": "ddim_sampler", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/ddim_sampler.cu",
          "replaces": "amuse_tpu/ops/denoiser_kernel.py:313", "windows": k3["windows"],
+         "cluster": k3["cluster"],
          "launches": launches["ddim_sampler"], "max_abs_err": k3["max_abs_err"],
-         "tolerance": k3["tolerance"], "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"],
+         "tolerance": k3["tolerance"], "ms": k3["ms"], "ms_per_step": k3["ms_per_step"],
+         "wrapper_ms": k3["wrapper_ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None},
         {"name": "attention_bwd", "route": "cuda",

@@ -302,3 +302,195 @@ def test_sampler_kernel_matches_plain(cuda, streams):
     torch.cuda.synchronize()
     assert ddim_sample_fused.launches == before + 1
     torch.testing.assert_close(out, ref, atol=2e-3, rtol=1e-2)
+
+
+# the sampler's widths: flagship (d 128, ff 512, 9 layers, 4 heads), the
+# small widths chip_smoke runs, d 64 over 5 layers, the widest of the
+# reference's prior sweep (amuse_tpu/cluster/sweep.py: d 256, ff 1024) and
+# d 512 / ff 2048, and head dim 1 (the scores of 32 heads in several passes)
+SAMPLER_DIMS = {
+    "flagship": {},
+    "d32": {"latent_dim": 32, "ff_size": 64, "num_layers": 3, "num_heads": 2, "cond_dim": 24},
+    "d64": {"latent_dim": 64, "ff_size": 128, "num_layers": 5, "num_heads": 4, "cond_dim": 24},
+    "d256": {"latent_dim": 256, "ff_size": 1024, "num_layers": 9, "num_heads": 8},
+    "d512": {"latent_dim": 512, "ff_size": 2048, "num_layers": 9, "num_heads": 8},
+    "hd1": {"latent_dim": 32, "ff_size": 64, "num_layers": 3, "num_heads": 32, "cond_dim": 24},
+}
+# 50 steps at the flagship dims: 4.6 times the largest reading on an H100
+# (chip_smoke.K3_TOL); other widths: tests/test_denoiser_kernel.py:47
+SAMPLER_ATOL_50 = {"flagship": 2e-4}
+_DENOISERS = {}
+
+
+def _sampler_denoiser(cuda, dims):
+    from amuse_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+
+    if dims not in _DENOISERS:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(len(dims))
+            _DENOISERS[dims] = Denoiser(DenoiserConfig(**SAMPLER_DIMS[dims])).to(cuda).eval()
+    return _DENOISERS[dims]
+
+
+def _sampler_inputs(cuda, den, n, tokens, seed):
+    """(con, emo, sty) for ``tokens`` real tokens (None streams dropped) and x0."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a, b, c = (torch.randn((n, den.cfg.cond_dim), generator=g, device=cuda) for _ in range(3))
+    streams = {2: (None, None, None), 3: (a, None, None), 4: (a, None, c), 5: (a, b, c)}[tokens]
+    return streams, torch.randn((n, 1, den.cfg.latent_dim), generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("steps,atol", [(1, 2e-4), (50, 2e-3)])
+@pytest.mark.parametrize("n", [1, 3, 8, 40])
+@pytest.mark.parametrize("tokens", [2, 3, 5])
+@pytest.mark.parametrize("dims", list(SAMPLER_DIMS))
+def test_sampler_cluster_kernel_sweep(cuda, dims, tokens, n, steps, atol):
+    """The cluster kernel against ddim_sample_reference: 2 real tokens
+    (latent and time alone, launched directly), 3 and 5; N windows up to
+    more clusters of 8 than the card runs at once; one step (atol 2e-4) and 50
+    (2e-3, the bounds of tests/test_denoiser_kernel.py; 2e-4 at the
+    flagship dims)."""
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    if steps == 50:
+        atol = SAMPLER_ATOL_50.get(dims, atol)
+    den = _sampler_denoiser(cuda, dims)
+    (con, emo, sty), x0 = _sampler_inputs(cuda, den, n, tokens, seed=100 * n + tokens)
+    sched = make_schedule()
+    pack = dk.pack_for_cluster(dk.pack_denoiser(den), dk.cluster_for(den.cfg, n))
+    sched_cond = dk.schedule_conditioning(den, sched, steps)
+    cond = (dk.condition_tokens(den, con, emo, sty) if con is not None
+            else torch.empty((n, 0, den.cfg.latent_dim), device=cuda))
+    before = dk.ddim_sample_fused.launches
+    out = dk.launch_sampler(pack, sched_cond, cond, x0, den.cfg)
+    ref = dk.ddim_sample_reference(den, sched, con, emo, sty, x0, steps)
+    torch.cuda.synchronize()
+    assert dk.ddim_sample_fused.launches == before + 1 and out.shape == (n, 1, den.cfg.latent_dim)
+    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dims", list(SAMPLER_DIMS))
+def test_sampler_kernel_bit_equal_reruns(cuda, dims):
+    """Two launches on the same inputs are bit-equal (FF2's partial sums are
+    added in rank order, no atomics), and ddim_sample_fused, with and without
+    the precomputed pack and schedule part, returns the launch's latents."""
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    den = _sampler_denoiser(cuda, dims)
+    (con, emo, sty), x0 = _sampler_inputs(cuda, den, 3, 5, seed=7)
+    sched = make_schedule()
+    weights = dk.SamplerWeights(dk.pack_denoiser(den))
+    pack = weights.for_cluster(dk.cluster_for(den.cfg, 3))
+    sched_cond = dk.schedule_conditioning(den, sched, 50)
+    cond = dk.condition_tokens(den, con, emo, sty)
+    first = dk.launch_sampler(pack, sched_cond, cond, x0, den.cfg)
+    second = dk.launch_sampler(pack, sched_cond, cond, x0, den.cfg)
+    given = dk.ddim_sample_fused(den, sched, con, emo, sty, 50, initial_latents=x0,
+                                 packed=weights, conditioning=sched_cond)
+    built = dk.ddim_sample_fused(den, sched, con, emo, sty, 50, initial_latents=x0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, given) and torch.equal(first, built)
+
+
+def test_sampler_kernel_refuses_what_it_does_not_take(cuda):
+    """Six real tokens, an even layer count, a width that is not a multiple
+    of 4 and a schedule part of another step count raise before any launch."""
+    import dataclasses
+
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    sched = make_schedule()
+    den = _sampler_denoiser(cuda, "d32")
+    (con, emo, sty), x0 = _sampler_inputs(cuda, den, 2, 5, seed=3)
+    weights = dk.SamplerWeights(dk.pack_denoiser(den))
+    pack = weights.for_cluster(dk.cluster_for(den.cfg, 2))
+    sched_cond = dk.schedule_conditioning(den, sched, 4)
+    before = dk.ddim_sample_fused.launches
+    cond = torch.zeros((2, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="at most 5 tokens"):
+        dk.launch_sampler(pack, sched_cond, cond, x0, den.cfg)
+    with pytest.raises(ValueError, match="steps"):
+        dk.ddim_sample_fused(den, sched, con, emo, sty, 5, initial_latents=x0, packed=weights,
+                             conditioning=sched_cond)
+    with pytest.raises(ValueError, match="odd layers"):  # no Denoiser has an even count
+        dk.launch_sampler(pack, sched_cond, cond[:, :3], x0,
+                          dataclasses.replace(den.cfg, num_layers=4))
+    cfg = {**SAMPLER_DIMS["d32"], "latent_dim": 30}
+    other = Denoiser(DenoiserConfig(**cfg)).to(cuda).eval()
+    with pytest.raises(ValueError, match="multiples of 4"):
+        dk.ddim_sample_fused(other, sched, con, emo, sty, 4,
+                             initial_latents=torch.zeros((2, 1, 30), device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):  # d 2048: 200 KB of activations
+        dk.cluster_for(dataclasses.replace(den.cfg, latent_dim=2048, ff_size=2048,
+                                           num_layers=1, num_heads=8), 1)
+    assert dk.ddim_sample_fused.launches == before
+
+
+# Past the sweep's widths: the largest d the one-block kernel this one
+# replaced took (one layer), and an edge of its shared memory (d 460, ff
+# 2048, 21 layers), where only a cluster of one fits, products do not
+# split K, and segments are larger than the weight ring.
+EDGE_DIMS = {
+    "d1164": {"latent_dim": 1164, "ff_size": 2048, "num_layers": 1, "num_heads": 4},
+    "d460_l21": {"latent_dim": 460, "ff_size": 2048, "num_layers": 21, "num_heads": 4},
+}
+SAMPLER_DIMS.update(EDGE_DIMS)
+
+
+@pytest.mark.parametrize("dims", ["flagship", "d256", "d512", *EDGE_DIMS])
+def test_sampler_kernel_at_every_cluster_size(cuda, dims):
+    """At every cluster size whose plan takes the dims (the wrapper picks
+    one of them by the window count), 50 steps agree with the plain loop
+    (atol 2e-3; 2e-4 at the flagship dims) and two launches are bit-equal."""
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    den = _sampler_denoiser(cuda, dims)
+    cfg = den.cfg
+    (con, emo, sty), x0 = _sampler_inputs(cuda, den, 2, 5, seed=11)
+    sched = make_schedule()
+    sched_cond = dk.schedule_conditioning(den, sched, 50)
+    cond = dk.condition_tokens(den, con, emo, sty)
+    ref = dk.ddim_sample_reference(den, sched, con, emo, sty, x0, 50)
+    packed, ran = dk.pack_denoiser(den), []
+    for c in dk.CLUSTER_SIZES:
+        if dk._plan(cfg.latent_dim, cfg.ff_size, cfg.num_heads, cfg.num_layers, c)[0] is None:
+            continue
+        pack = dk.pack_for_cluster(packed, c)
+        out = dk.launch_sampler(pack, sched_cond, cond, x0, cfg)
+        again = dk.launch_sampler(pack, sched_cond, cond, x0, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), c
+        torch.testing.assert_close(out, ref, atol=SAMPLER_ATOL_50.get(dims, 2e-3), rtol=0,
+                                   msg=lambda m, c=c: f"cluster {c}: {m}")
+        ran.append(c)
+    assert ran
+
+
+def _one_block_kernel_took(d, ff, layers):
+    """The shapes the one-block sampler kernel took: d and ff multiples of 4
+    up to 2048, and its shared memory (activations, hidden, skips, split-K
+    scratch, latent) within 227 KB."""
+    td = 5 * d
+    floats = 6 * td + 5 * max(ff, 2 * d) + (layers - 1) // 2 * td + 512 * 4 * 5 + d
+    return d % 4 == 0 and ff % 4 == 0 and max(d, ff) <= 2048 and 4 * floats <= 227 * 1024
+
+
+def test_sampler_kernel_takes_every_shape_the_one_block_kernel_took(cuda):
+    """Over a grid of widths and depths up to the edge of the one-block
+    kernel's shared memory, every shape it took has a cluster size whose
+    plan takes it and that the card runs."""
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    shapes = [(d, ff, layers) for d in (*range(4, 1200, 52), 128, 256, 460, 512, 1024, 1164)
+              for ff in (4 * (d // 8 + 1), 2 * d, 4 * d, 1024, 2048)
+              for layers in (1, 3, 9, 21, 41) if _one_block_kernel_took(d, ff, layers)]
+    assert len(shapes) > 300 and (1164, 2048, 1) in shapes and (460, 2048, 21) in shapes
+    for d, ff, layers in shapes:
+        cfg = DenoiserConfig(latent_dim=d, ff_size=ff, num_layers=layers, num_heads=1)
+        dk.sampler_plan(d, ff, 1, layers, dk.cluster_for(cfg, 1))

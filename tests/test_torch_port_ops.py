@@ -202,3 +202,132 @@ class TestSamplerPlain:
         with pytest.raises(ValueError):
             tdk.ddim_sample_fused(port, make_schedule(), torch.from_numpy(con), num_steps=2,
                                   initial_latents=torch.zeros(3, 1, 128))
+
+
+def test_split_conditioning_matches_jax(flagship_denoiser):
+    """The per-schedule part (schedule_conditioning) and the per-call part
+    (condition_tokens) together equal precompute_conditioning bit for bit and
+    the JAX package's precompute_conditioning (the tolerances of
+    test_conditioning_matches_jax); the vectorised coefficient table equals
+    the per-timestep ddim_coefficients bit for bit."""
+    from amuse_tpu_torch.diffusion.schedulers import (ddim_coefficient_table, ddim_coefficients,
+                                                      ddim_timesteps)
+
+    cfg, _, params, port = flagship_denoiser
+    con, emo, sty = _conds(4, 2)
+    sched = make_schedule()
+    split = tdk.schedule_conditioning(port, sched, 50)
+    cond = tdk.condition_tokens(port, *map(torch.from_numpy, (con, emo, sty)))
+    whole = tdk.precompute_conditioning(port, sched, *map(torch.from_numpy, (con, emo, sty)))
+    for mine, ref in zip((split.time_tokens, cond, split.coeffs, split.pos0), whole):
+        assert torch.equal(mine, ref)
+    ref = jdk.precompute_conditioning(params, cfg, jmake_schedule(), con, emo, sty)
+    for m, r, atol in zip(whole, ref, (1e-5, 1e-5, 1e-6, 0)):
+        np.testing.assert_allclose(m.numpy(), np.asarray(r), atol=atol)
+    for steps in (1, 7, 50):
+        loop = torch.stack([ddim_coefficients(sched, t, steps)
+                            for t in ddim_timesteps(sched, steps).tolist()])
+        assert torch.equal(ddim_coefficient_table(sched, steps), loop)
+
+
+def test_fused_sampler_with_precomputed_parts(flagship_denoiser):
+    """ddim_sample_fused on CPU tensors gives the same latents with and
+    without the precomputed per-schedule conditioning and cluster pack."""
+    _, _, _, port = flagship_denoiser
+    con, emo, sty = map(torch.from_numpy, _conds(6, 2))
+    x0 = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 1, 128)).astype(np.float32))
+    sched = make_schedule()
+    plain = tdk.ddim_sample_fused(port, sched, con, emo, sty, num_steps=3, initial_latents=x0)
+    given = tdk.ddim_sample_fused(
+        port, sched, con, emo, sty, num_steps=3, initial_latents=x0,
+        packed=tdk.SamplerWeights(tdk.pack_denoiser(port)),
+        conditioning=tdk.schedule_conditioning(port, sched, 3))
+    assert torch.equal(plain, given)
+
+
+def _unslice(pack, d, ff, layers):
+    """The cluster pack's runs -> PackedDenoiser tensors (the inverse of
+    pack_for_cluster), cutting each run by stream_segments."""
+    c_n, n_skip = pack.cluster, (layers - 1) // 2
+    dc, fc = d // c_n, ff // c_n
+    out = {name: torch.zeros_like(t) for name, t in zip(
+        tdk.PackedDenoiser._fields,
+        (torch.zeros(layers, d, d),) * 4 + (torch.zeros(layers, d),) * 4
+        + (torch.zeros(layers, d, ff), torch.zeros(layers, ff), torch.zeros(layers, ff, d),
+           torch.zeros(layers, d), torch.zeros(layers, 2, d), torch.zeros(layers, 2, d),
+           torch.zeros(n_skip, 2 * d, d), torch.zeros(n_skip, d), torch.zeros(d),
+           torch.zeros(d)))}
+    for c in range(c_n):
+        cs, fs = slice(c * dc, (c + 1) * dc), slice(c * fc, (c + 1) * fc)
+        pieces = torch.split(pack.weights[c], [s.rows * s.cols for s in
+                                               tdk.stream_segments(d, ff, layers, c_n)])
+        for seg, flat in zip(tdk.stream_segments(d, ff, layers, c_n), pieces):
+            m, i = flat.reshape(seg.rows, seg.cols), seg.index
+            if seg.kind == "merge":
+                out["wskip"][i][:, cs], out["bskip"][i][cs] = m[:-1], m[-1]
+            elif seg.kind == "qkv":
+                for j, name in enumerate("qkv"):
+                    out[f"w{name}"][i][:, cs] = m[:-1, j * dc:(j + 1) * dc]
+                    out[f"b{name}"][i][cs] = m[-1, j * dc:(j + 1) * dc]
+            elif seg.kind == "o":
+                out["wo"][i][:, cs], out["bo"][i][cs] = m[:-1], m[-1]
+            elif seg.kind == "ln1":
+                out["ln_scale"][i, 0], out["ln_bias"][i, 0] = m
+            elif seg.kind == "ff1":
+                out["w1"][i][:, fs], out["b1"][i][fs] = m[:-1], m[-1]
+            elif seg.kind == "ff2":
+                out["w2"][i][fs, :] = m
+            elif seg.kind == "ln2":
+                out["b2"][i], out["ln_scale"][i, 1], out["ln_bias"][i, 1] = m
+            else:
+                out["final_scale"], out["final_bias"] = m[0].clone(), m[1].clone()
+    return tdk.PackedDenoiser(**out)
+
+
+@pytest.mark.parametrize("dims,cluster", [((32, 64, 3, 2), 8), ((32, 64, 3, 2), 2),
+                                          ((64, 128, 5, 4), 4), ((128, 512, 9, 4), 8),
+                                          ((20, 44, 3, 2), 1)])
+def test_cluster_pack_layout(dims, cluster):
+    """The per-CTA weight runs the kernel reads: they unslice exactly to
+    pack_denoiser's tensors, each run has the length stream_segments gives,
+    and plain-torch products over the CTAs' slices (Q|K|V, O, FF1 and the
+    merges by output columns, FF2 by K rows with the partials summed in
+    rank order) equal the unsliced products (atol 1e-5: FF2's partials are
+    summed in another order)."""
+    d, ff, layers, heads = dims
+    torch.manual_seed(sum(dims))
+    den = Denoiser(DenoiserConfig(latent_dim=d, ff_size=ff, num_layers=layers,
+                                  num_heads=heads, cond_dim=16)).eval()
+    packed = tdk.pack_denoiser(den)
+    pack = tdk.pack_for_cluster(packed, cluster)
+    segs = tdk.stream_segments(d, ff, layers, cluster)
+    assert pack.weights.shape == (cluster, sum(s.rows * s.cols for s in segs))
+    back = _unslice(pack, d, ff, layers)
+    for name in tdk.PackedDenoiser._fields:
+        assert torch.equal(getattr(back, name), getattr(packed, name)), name
+    x = torch.randn(5, d)
+    h = torch.randn(5, ff)
+    xs = torch.randn(5, 2 * d)
+    dc, fc = d // cluster, ff // cluster
+    runs = [dict(zip([(s.kind, s.index) for s in segs],
+                     (f.reshape(s.rows, s.cols) for s, f in zip(
+                         segs, torch.split(pack.weights[c], [s.rows * s.cols for s in segs])))))
+            for c in range(cluster)]
+    for layer in range(layers):
+        qkv = torch.cat([x @ r["qkv", layer][:-1] + r["qkv", layer][-1] for r in runs], dim=1)
+        by_part = [qkv.reshape(5, cluster, 3, dc)[:, :, j].reshape(5, d) for j in range(3)]
+        for got, w, b in zip(by_part, (packed.wq, packed.wk, packed.wv),
+                             (packed.bq, packed.bk, packed.bv)):
+            torch.testing.assert_close(got, x @ w[layer] + b[layer], atol=1e-5, rtol=0)
+        o = torch.cat([x @ r["o", layer][:-1] + r["o", layer][-1] for r in runs], dim=1)
+        torch.testing.assert_close(o, x @ packed.wo[layer] + packed.bo[layer], atol=1e-5, rtol=0)
+        f1 = torch.cat([x @ r["ff1", layer][:-1] + r["ff1", layer][-1] for r in runs], dim=1)
+        torch.testing.assert_close(f1, x @ packed.w1[layer] + packed.b1[layer], atol=1e-5,
+                                   rtol=0)
+        f2 = sum(h[:, c * fc:(c + 1) * fc] @ runs[c]["ff2", layer] for c in range(cluster))
+        torch.testing.assert_close(f2 + runs[0]["ln2", layer][0],
+                                   h @ packed.w2[layer] + packed.b2[layer], atol=1e-5, rtol=0)
+    for si in range((layers - 1) // 2):
+        m = torch.cat([xs @ r["merge", si][:-1] + r["merge", si][-1] for r in runs], dim=1)
+        torch.testing.assert_close(m, xs @ packed.wskip[si] + packed.bskip[si], atol=1e-5,
+                                   rtol=0)
