@@ -1,22 +1,31 @@
 """CLI of the PyTorch/CUDA port.
 
-    python -m amuse_tpu_torch.cli.main --fn {infer_gesture,train_audio} [--cfg tiny.json]
-        [--set key=value ...] [--wav-dir DIR] [--device cuda|cpu]
+    python -m amuse_tpu_torch.cli.main --fn {infer_gesture,edit_gesture,prepare_data,train_audio}
+        [--cfg tiny.json] [--set key=value ...] [--wav-dir DIR] [--device cuda|cpu]
 
 ``infer_gesture`` turns every WAV under ``--wav-dir`` into SMPL-X npz files,
 one per 10 s window, under ``<out_dir>/<timestamp>/gesture/<stem>/rep<r>/seq_<i>/``
-(the JAX CLI's layout and per-WAV seed folding). With no checkpoint
-configured the weights are random (seeded by ``cfg.seed``).
+(the JAX CLI's layout and per-WAV seed folding).
+
+``edit_gesture`` runs the editing tasks the ``test.*`` flags select
+(emotion_control, style_transfer, style_Xemo_transfer) on the BEAT tree at
+``data.data_root``, and the demo emotion swap over the first two WAVs of
+``viz_dump/test/e_speech``, each replication under ``rep<r>/``; it writes
+npz files only (rendering is not ported).
+
+``prepare_data`` builds the stage-2 window cache (frozen-AST features, one
+``encode_audio`` per take) at ``data.cache_dir`` and the stage-1 quad
+dataset at ``data.stage1_dataset``, each skipped when already built.
 
 ``train_audio`` trains the stage-1 AST disentangler on the quad dataset at
-``data.stage1_dataset`` (the npz ``prepare_data`` writes), one device, and
-writes ``metrics.jsonl`` and a checkpoint per epoch under
-``<out_dir>/<timestamp>/`` unless ``debug``; ``resume=<checkpoint dir>``
-continues a run.
+``data.stage1_dataset``, one device, and writes ``metrics.jsonl`` and a
+checkpoint per epoch under ``<out_dir>/<timestamp>/`` unless ``debug``;
+``resume=<checkpoint dir>`` continues a run.
 
-The device defaults to ``cuda`` and the run fails without a GPU. Loading
-released checkpoints (``AMUSE_TPU_CKPT``) and every other task are not
-ported yet.
+Weights come from ``AMUSE_TPU_CKPT`` (and ``AMUSE_TPU_AST_CKPT``), read by
+``utils/checkpoint_io.py``; with neither set they are random, seeded by
+``cfg.seed``. The device defaults to ``cuda`` and the run fails without a
+GPU. Every other task is not ported yet.
 """
 
 from __future__ import annotations
@@ -73,15 +82,13 @@ def _model_cfgs(cfg):
 
 def _make_pipeline(cfg, device):
     from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+    from amuse_tpu_torch.utils.checkpoint_io import load_pipeline_params
 
-    if os.environ.get("AMUSE_TPU_CKPT"):
-        raise NotImplementedError(
-            f"AMUSE_TPU_CKPT={os.environ['AMUSE_TPU_CKPT']}: checkpoint loading is "
-            "not yet ported to amuse_tpu_torch; unset it to run with random weights"
-        )
     prior_cfg, den_cfg, ast_cfg = _model_cfgs(cfg)
-    print("[pipeline] no checkpoint configured; using random weights")
-    params = init_random_params(cfg.seed, prior_cfg, den_cfg, ast_cfg)
+    params = load_pipeline_params()
+    if params is None:
+        print("[pipeline] no checkpoint configured; using random weights")
+        params = init_random_params(cfg.seed, prior_cfg, den_cfg, ast_cfg)
     return GesturePipeline(
         params, prior_cfg, den_cfg, ast_cfg,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
@@ -101,6 +108,148 @@ def _setup(cfg) -> Path:
         run_dir.mkdir(parents=True, exist_ok=True)
         (run_dir / "experiment_args.json").write_text(dump_config(cfg))
     return run_dir
+
+
+def task_prepare_data(cfg, device: torch.device):
+    """Stage-2 window cache (MoSh motion + frozen-AST features) and the
+    stage-1 quad dataset; nothing is written when the data root is empty."""
+    from amuse_tpu_torch.data import beat, stage1
+
+    takes = beat.discover(Path(cfg.data.data_root), Path(cfg.data.mosh_root))
+    subset = beat.stage2_subset(takes)
+    print(f"[prepare_data] {len(subset)} stage-2 takes discovered")
+    if not takes:
+        print(f"[prepare_data] WARNING: nothing under {cfg.data.data_root} - check "
+              "data.data_root/data.mosh_root; not writing empty datasets")
+        return
+    if not subset:
+        # no 0-window manifest (it would short-circuit every later build); an
+        # audio-only corpus is still a stage-1 corpus, so the quads still build
+        print(f"[prepare_data] WARNING: takes found but no stage-2 subset - check "
+              f"data.mosh_root ({cfg.data.mosh_root}); stage-2 cache not built "
+              "(stage-1 dataset still builds)")
+    else:
+        _build_stage2(cfg, subset, device)
+
+    out = Path(cfg.data.stage1_dataset)
+    provenance = stage1.takes_provenance(takes)
+    if stage1.dataset_is_current(out, provenance):
+        print(f"[prepare_data] stage-1 dataset current, skipping -> {out} (identity-only "
+              "check: delete the npz to force a rebuild after editing a wav/CSV in place)")
+        return
+    per_take = stage1.fbanks_per_take(takes, stage1.device_fbank_fn(device))
+    train = stage1.build_quads(per_take, "train")
+    val = stage1.build_quads(per_take, "val")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    stage1.save_dataset(out, train, val, provenance)
+    print(f"[prepare_data] stage-1 quads: train {train['emo_id'].shape[0]}, "
+          f"val {val['emo_id'].shape[0]} -> {out}")
+
+
+def _build_stage2(cfg, subset, device):
+    """The stage-2 leg of prepare_data: one encode_audio call per take on one
+    device (the JAX CLI shards this pass over a mesh)."""
+    from amuse_tpu_torch.data import cache
+
+    pipe = _make_pipeline(cfg, device)
+
+    def encode(chunks):
+        return {k: v.cpu().numpy() for k, v in pipe.encode_audio(chunks).items()}
+
+    ast_source = os.environ.get("AMUSE_TPU_CKPT") or "random-weights"
+    if ast_source == "random-weights":
+        print("[prepare_data] WARNING: building AST features with RANDOM weights "
+              "(set AMUSE_TPU_CKPT for real conditioning)")
+    cache.build_stage2_cache(subset, Path(cfg.data.cache_dir), encode,
+                             window_frames=cfg.data.window_frames, ast_source=ast_source)
+
+
+def _export_edit_results(run_dir: Path, task_name: str, results: dict) -> None:
+    """One npz per window and variant, jaw zeroed, under
+    ``<run_dir>/<task_name>/<source>/<variant>/seq_<i>/``."""
+    from amuse_tpu_torch.core.motion import zero_jaw
+    from amuse_tpu_torch.viz.export import export_windows
+
+    for source_key, variants in results.items():
+        for variant, (poses, trans) in variants.items():
+            export_windows(run_dir / task_name / source_key / variant,
+                           {"poses": zero_jaw(torch.from_numpy(poses)).numpy(),
+                            "trans": trans, "fps": 30.0},
+                           subject=source_key.split("_")[0], stem=variant)
+    print(f"[edit] {task_name}: {len(results)} sources -> {run_dir / task_name}")
+
+
+def task_edit_gesture(cfg, device: torch.device):
+    """The editing tasks the ``cfg.test`` flags select, on the BEAT tree, and
+    the demo emotion swap over two WAVs under viz_dump/test/e_speech.
+
+    Each replication reruns every task with seed ``cfg.seed + rep``;
+    style_Xemo_transfer also redraws which of an emotion's two takes stands
+    for it. A missing corner take skips only that task.
+    """
+    import numpy as np
+
+    from amuse_tpu_torch.audio.wavio import load_wav_resampled
+    from amuse_tpu_torch.data import beat, eval_sets
+    from amuse_tpu_torch.infer import editing
+    from amuse_tpu_torch.viz.export import export_windows
+
+    run_dir = _setup(cfg)
+    pipe = _make_pipeline(cfg, device)
+    t = cfg.test
+    dataset_tasks = t.emotion_control or t.style_transfer or t.style_xemo_transfer
+    reps = max(1, t.replication_times)
+    data_root = Path(cfg.data.data_root)
+    for rep in range(reps):
+        seed_r = cfg.seed + rep
+        if reps > 1:
+            print(f"[edit] replication {rep + 1}/{reps} (seed {seed_r})")
+        if dataset_tasks and data_root.exists():
+            takes = beat.discover(data_root, Path(cfg.data.mosh_root))
+
+            def encode_item(item):
+                return editing.encode_take(pipe, item.actor, item.take, 0, item.waveform,
+                                           item.motion, seed_r)
+
+            if t.emotion_control and t.actors:
+                items = eval_sets.emotion_control_set(takes, t.actors[0])
+                _export_edit_results(
+                    run_dir, f"emotion_control/rep{rep}",
+                    editing.emotion_control(pipe, [encode_item(i) for i in items], seed_r))
+            if t.style_transfer and len(t.actors) >= 2:
+                a1, a2 = eval_sets.style_transfer_set(takes, t.actors[0], t.actors[1],
+                                                      t.emotion)
+                _export_edit_results(
+                    run_dir, f"style_transfer/rep{rep}",
+                    editing.style_transfer(pipe, [encode_item(i) for i in a1],
+                                           [encode_item(i) for i in a2], seed_r))
+            if t.style_xemo_transfer and len(t.actors) >= 2:
+                try:
+                    corners = eval_sets.style_xemo_set(
+                        takes, t.actors[0], t.actors[1], "angry", t.emotion,
+                        rng=np.random.default_rng(seed_r))
+                except FileNotFoundError as e:  # skips this task only
+                    print(f"[edit] style_Xemo_transfer skipped: {e}")
+                else:
+                    enc = {k: encode_item(v) for k, v in corners.items()}
+                    _export_edit_results(
+                        run_dir, f"style_Xemo_transfer/rep{rep}",
+                        editing.style_xemo_transfer(pipe, enc["a1_e1"], enc["a1_e2"],
+                                                    enc["a2_e1"], enc["a2_e2"], seed_r))
+
+        demo_dir = Path("viz_dump/test/e_speech")
+        wavs = sorted(demo_dir.glob("*.wav"))
+        if len(wavs) >= 2:
+            out = editing.demo_emotion_swap(pipe, load_wav_resampled(wavs[0]),
+                                            load_wav_resampled(wavs[1]), seed_r)
+            for name, (poses, trans) in out.items():
+                export_windows(run_dir / "e_gesture" / f"rep{rep}" / name,
+                               {"poses": poses, "trans": trans, "fps": 30.0}, stem=name)
+            print(f"[edit] demo emotion swap -> {run_dir / 'e_gesture' / f'rep{rep}'}")
+        elif rep == 0 and not dataset_tasks:
+            print(f"[edit] no demo wavs under {demo_dir} and no cfg.test task enabled")
+            break
+    print("[edit] rendering (Blender, ffmpeg) is not ported yet; wrote the npz files only")
 
 
 def task_train_audio(cfg, device: torch.device):
@@ -235,15 +384,17 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.fn not in TASK_NAMES:
         p.error(f"unknown --fn {args.fn!r}; tasks: {', '.join(TASK_NAMES)}")
-    if args.fn not in ("infer_gesture", "train_audio"):
+    ported = {"edit_gesture": task_edit_gesture, "infer_gesture": task_infer_gesture,
+              "prepare_data": task_prepare_data, "train_audio": task_train_audio}
+    if args.fn not in ported:
         raise SystemExit(f"--fn {args.fn}: not yet ported to amuse_tpu_torch "
-                         "(infer_gesture and train_audio are)")
+                         f"({', '.join(ported)} are)")
     cfg = load_config(args.cfg, parse_cli_overrides(args.set))
     device = resolve_device(args.device)
-    if args.fn == "train_audio":
-        task_train_audio(cfg, device)
-    else:
+    if args.fn == "infer_gesture":
         task_infer_gesture(cfg, args.wav_dir, device)
+    else:
+        ported[args.fn](cfg, device)
 
 
 if __name__ == "__main__":

@@ -52,7 +52,9 @@ class CheckpointManager:
             if (path / "state").is_dir():
                 raise NotImplementedError(
                     f"{path} is an orbax checkpoint of the JAX package; amuse_tpu_torch "
-                    "reads only its own torch.save checkpoints")
+                    "reads only its own torch.save checkpoints (convert JAX parameters "
+                    "with amuse_tpu_torch.convert.from_jax_params and save them with "
+                    "CheckpointManager)")
             raise FileNotFoundError(f"no state.pt under {path}")
         state = torch.load(path / "state.pt", map_location="cpu", weights_only=True)
         return state, self.metadata(int(path.name.split("_")[1]))

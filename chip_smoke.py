@@ -8,6 +8,8 @@
     python3 chip_smoke.py --only-wav-to-motion  # build, then wav_to_motion at N = 1 and 4 alone
     python3 chip_smoke.py --only-train-step  # build, then the flagship train step alone
     python3 chip_smoke.py --only-train-step --train-steps 12  # with 12 timed steps, not 4
+    python3 chip_smoke.py --only-edit  # build, then checkpoint_load and edit_gesture alone
+    python3 chip_smoke.py --only-prepare-data  # build, then prepare_data alone
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -18,7 +20,13 @@ the kernels' launch counters that each went through its kernels:
     random weights, then the ``infer_gesture`` CLI (K1, K3);
   * stage-1 training: the ``train_audio`` step at small widths against the
     CPU plain path, at the flagship widths (timed, traced), then the
-    ``train_audio`` CLI with a checkpoint and a resume (K1, K2).
+    ``train_audio`` CLI with a checkpoint and a resume (K1, K2);
+  * editing: a released checkpoint directory at the flagship widths loaded
+    by ``utils/checkpoint_io.py``, then ``emotion_control`` and
+    ``style_transfer`` through it (K1, K3);
+  * ``prepare_data``: the frozen-AST stage-2 cache and the stage-1 quads
+    (K1), then the ``edit_gesture`` and ``prepare_data`` CLIs at tiny widths
+    on the card against the CPU.
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -190,9 +198,10 @@ def phase_attention(rng_seed: int = 0) -> dict:
     qkv output, as vit_block feeds it) and at ragged S = 70: the largest and
     the relative L2 error of the output, the row log-sum-exp against
     torch.logsumexp, and the two instantiations' outputs bit for bit. At the
-    AST shapes, N = 1 and N = 4 windows (the train step's too), it is timed with
-    and without the row log-sum-exp beside SDPA called both ways, with its
-    achieved TFLOP/s and its share of the bound."""
+    AST shapes, N = 1, 4 (the train step's too) and 6 windows (one take of
+    the edit and prepare_data paths), it is timed with and without the row
+    log-sum-exp beside SDPA called both ways, with its achieved TFLOP/s and
+    its share of the bound. -> {shape: case} of the AST shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -204,7 +213,8 @@ def phase_attention(rng_seed: int = 0) -> dict:
                                    (torch.float32, 2, 2, 70, 64, K1_TOL_F32),
                                    (torch.bfloat16, 1, 2, 70, 32, K1_TOL),
                                    (torch.bfloat16, 3, 12, 1214, 64, K1_TOL_AST),
-                                   (torch.bfloat16, 12, 12, 1214, 64, K1_TOL_AST)):
+                                   (torch.bfloat16, 12, 12, 1214, 64, K1_TOL_AST),
+                                   (torch.bfloat16, 18, 12, 1214, 64, K1_TOL_AST)):
         name = str(dtype).replace("torch.", "")
         qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(dtype)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -248,7 +258,7 @@ def phase_attention(rng_seed: int = 0) -> dict:
             case.update(tflops=flops / case["ms"] / 1e9, bound_share=case["bound_ms"] / case["ms"])
         cases.append(case)
     emit({"phase": "attention_k1", "cases": cases})
-    return next(c for c in cases if c["shape"] == [3, 12, 1214, 64])
+    return {tuple(c["shape"]): c for c in cases if c["shape"][2] == 1214}
 
 
 def _sampler_flops(n: int, steps: int, t: int, d: int, ff: int, layers: int) -> float:
@@ -533,25 +543,33 @@ def _device_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r["ms"])
 
 
-def trace_wav_to_motion(pipe, chunks) -> None:
-    """Device time by kernel for one wav_to_motion call (torch.profiler,
-    CUPTI); the profiled call's host wall time includes the profiler's own
-    overhead. The Chrome trace goes to chiprun_out/chip_smoke/."""
+def trace_call(fn, name: str) -> dict:
+    """Device time by kernel for one call of fn() (torch.profiler, CUPTI):
+    the call's host wall time (the profiler's overhead included), the device
+    busy time, launches and the longest kernels. The Chrome trace goes to
+    ``OUT / "<name>_trace.json"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.wav_to_motion(chunks, generator=gen)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = _device_rows(prof)
-    prof.export_chrome_trace(str(OUT / "wav_to_motion_trace.json"))
-    emit({"phase": "trace_wav_to_motion", "windows": chunks.shape[0], "wall_ms": wall_ms,
-          "device_busy_ms": sum(r["ms"] for r in rows), "device_kernels": len(rows),
-          "device_launches": sum(r["calls"] for r in rows),
-          "top": [{**r, "kernel": r["kernel"][:90]} for r in rows[:12]]})
+    prof.export_chrome_trace(str(OUT / f"{name}_trace.json"))
+    return {"wall_ms": wall_ms, "device_busy_ms": sum(r["ms"] for r in rows),
+            "device_kernels": len(rows), "device_launches": sum(r["calls"] for r in rows),
+            "top": [{**r, "kernel": r["kernel"][:90]} for r in rows[:12]]}
+
+
+def trace_wav_to_motion(pipe, chunks) -> None:
+    """One wav_to_motion call, traced."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    emit({"phase": "trace_wav_to_motion", "windows": chunks.shape[0],
+          **trace_call(lambda: pipe.wav_to_motion(chunks, generator=gen), "wav_to_motion")})
 
 
 def phase_cli():
@@ -955,6 +973,405 @@ def phase_cli_train():
           "last": second.stdout.strip().splitlines()[-1][:300]})
 
 
+# edit and prepare_data paths: the flagship widths, random weights made
+# from a seed and written as a released AMUSE directory
+EDIT_WINDOWS = 6  # one 60 s take: K1 at (3 x 6, 12, 1214, 64)
+PREP_FEAT_TOL = 1e-6  # the cached features against encode_audio on the same batch
+CLI_TOL = 1e-3  # the CLIs at tiny widths, card against CPU, float32
+
+
+def _stage2_name(kind: str, total: float, epoch: int) -> str:
+    """The reference's stage-2 checkpoint name (trainer.py:470-496)."""
+    return (f"{kind}_recF0.1000_recJ0.2000_kl0.3000_genF0.4000_genJ0.5000_instL0.6000"
+            f"_vtexR0.7000_vtexG0.8000_total{total:.4f}_e{epoch}.pt")
+
+
+def _ast_name(epoch: int, tea: float, tpa: float) -> str:
+    """The reference's stage-1 checkpoint name (trainer.py:328)."""
+    return (f"model_{epoch}_tL0.50000000_tEA{tea:.8f}_tPA{tpa:.8f}_vL0.60000000"
+            f"_vEA0.80000000_vPA0.30000000.pkl")
+
+
+def write_released_dir(root: Path) -> tuple[dict, dict]:
+    """A released AMUSE directory at the flagship widths from the port's
+    modules (reference keys, random weights from seed 0): the stage-1
+    disentangler with DataParallel ``module.`` prefixes, a prior, a latdiff
+    with ``denoiser.`` prefixes in ``model_state_dict``, and decoys whose
+    filename metrics must lose (a decoy that is loaded fails).
+    -> ({kind: the file to select}, {kind: state dict as written, unprefixed})."""
+    import torch
+
+    from amuse_tpu_torch.models.ast import ASTDisentangler
+    from amuse_tpu_torch.models.denoiser import Denoiser
+    from amuse_tpu_torch.models.vae import MotionPrior
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sds = {"ast": ASTDisentangler().state_dict(), "prior": MotionPrior().state_dict(),
+               "denoiser": Denoiser().state_dict()}
+    want = {"ast": root / _ast_name(7, 0.91, 0.2),
+            "prior": root / _stage2_name("prior_model_NoOpt", 2.0, 200),
+            "denoiser": root / _stage2_name("latdiff_model_wOpt", 0.25, 200)}
+    torch.save({f"module.{k}": v for k, v in sds["ast"].items()}, want["ast"])
+    torch.save(sds["prior"], want["prior"])
+    torch.save({"model_state_dict": {f"denoiser.{k}": v for k, v in sds["denoiser"].items()},
+                "optimizer_state_dict": {"state": {}, "param_groups": [{"lr": 1e-4}]}},
+               want["denoiser"])
+    for name in (_ast_name(3, 0.90, 0.95), _stage2_name("prior_model_NoOpt", 0.5, 300),
+                 _stage2_name("latdiff_model_wOpt", 0.75, 300)):
+        torch.save({"decoy.weight": torch.zeros(3)}, root / name)
+    return want, sds
+
+
+def phase_checkpoint_load(root: Path):
+    """A released directory at the flagship widths loaded through
+    ``utils/checkpoint_io.py`` (``read_s``: file selection, reading,
+    prefixes) into a GesturePipeline on the card (``pipeline_s``: moves,
+    the AST stacked, the sampler's weights packed): the files
+    the reference's grammars select, every parameter bit-equal to what was
+    written, and ``wav_to_motion`` bit-equal to a pipeline built from the same
+    state dicts directly, with the same generator. -> the loaded pipeline."""
+    import torch
+
+    from amuse_tpu_torch.infer.pipeline import ENCODERS, GesturePipeline, PipelineParams
+    from amuse_tpu_torch.utils import checkpoint_io
+
+    t0 = time.perf_counter()
+    want, sds = write_released_dir(root)
+    write_s = time.perf_counter() - t0
+    os.environ["AMUSE_TPU_CKPT"] = str(root)
+    try:
+        t0 = time.perf_counter()
+        params = checkpoint_io.load_pipeline_params()
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipe = GesturePipeline(params, device="cuda")
+        torch.cuda.synchronize()
+        pipeline_s = time.perf_counter() - t0
+    finally:
+        del os.environ["AMUSE_TPU_CKPT"]
+    selected = checkpoint_io.released_files(root)
+    check(selected == want, f"checkpoint_io selected {selected}, expected {want}")
+    n_params = 0
+    for kind in ("ast", "prior", "denoiser"):
+        got = getattr(params, kind)
+        check(got.keys() == sds[kind].keys(), f"loaded {kind} keys differ from those written")
+        for k, v in sds[kind].items():
+            check(torch.equal(got[k], v), f"loaded {kind} parameter {k} differs")
+            n_params += v.numel()
+    for kind, module in (("prior", pipe.prior), ("denoiser", pipe.denoiser)):
+        for k, v in module.state_dict().items():
+            check(torch.equal(v.cpu(), sds[kind][k]), f"pipeline {kind} parameter {k} differs")
+    for k, v in pipe.ast_params.items():
+        ref = torch.stack([sds["ast"][f"{n}_enc.{k}"] for n in ENCODERS]).to(pipe.dtype)
+        check(torch.equal(v.cpu(), ref), f"pipeline AST parameter {k} differs")
+    direct = GesturePipeline(PipelineParams(**sds), device="cuda")
+    chunks = _chunks(2, 7)
+    outs = [p.wav_to_motion(chunks, generator=torch.Generator(device="cuda").manual_seed(0))
+            for p in (pipe, direct)]
+    check(all(torch.equal(a, b) for a, b in zip(*outs)),
+          "wav_to_motion of the loaded pipeline differs from one built from the state dicts")
+    check(all(torch.isfinite(t).all().item() for t in outs[0]), "wav_to_motion not finite")
+    del direct
+    emit({"phase": "checkpoint_load", "selected": {k: v.name for k, v in selected.items()},
+          "parameters": n_params, "write_s": write_s, "read_s": read_s,
+          "pipeline_s": pipeline_s, "load_s": read_s + pipeline_s,
+          "wav_to_motion_bit_equal": True})
+    return pipe
+
+
+def _write_take(root: Path, actor_id: int, name: str, take: str, windows: int, rng) -> None:
+    """A BEAT take (wav, emotion CSV) and its MoSh npz (30 fps), 0.1 s over
+    ``windows`` 10 s windows."""
+    import numpy as np
+
+    from amuse_tpu_torch.audio.wavio import save_wav
+
+    d = root / "beat" / str(actor_id)
+    d.mkdir(parents=True, exist_ok=True)
+    (root / "mosh").mkdir(exist_ok=True)
+    stem = f"{actor_id}_{name}_{take}"
+    save_wav(d / f"{stem}.wav",
+             rng.normal(scale=0.05, size=windows * 160000 + 1600).astype(np.float32))
+    (d / f"{stem}.csv").write_text("0,0\n1,0\n")
+    t = windows * 300 + 3
+    np.savez(root / "mosh" / f"{stem}.npz",
+             poses=(0.2 * rng.normal(size=(t, 165))).astype(np.float32),
+             trans=(0.1 * rng.normal(size=(t, 3))).astype(np.float32))
+
+
+def phase_edit(pipe, root: Path) -> dict:
+    """emotion_control through ``pipe`` over one actor's 8 emotion takes of
+    EDIT_WINDOWS windows with motion (8 encode_take: 96 K1; 64 generate_with:
+    64 K3 at N = EDIT_WINDOWS, counted exactly), "self" bit-equal to a
+    variant given the source's own emotion latent, then style_transfer with
+    reference_quirk True and False on two takes, which must differ."""
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.data import beat, eval_sets
+    from amuse_tpu_torch.data.actors import PRETRAINED_TAKES
+    from amuse_tpu_torch.infer import editing
+
+    rng = np.random.default_rng(9)
+    for first, _ in PRETRAINED_TAKES.values():
+        _write_take(root, 2, "scott", first, EDIT_WINDOWS, rng)
+    items = eval_sets.emotion_control_set(beat.discover(root / "beat", root / "mosh"), "scott")
+    check(len(items) == 8, f"{len(items)} emotion takes found, expected 8")
+    editing.generate_with(pipe, *(torch.zeros((EDIT_WINDOWS, pipe.denoiser_cfg.cond_dim),
+                                              device="cuda") for _ in range(3)))  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    latents = [editing.encode_take(pipe, i.actor, i.take, 0, i.waveform, i.motion, seed=1)
+               for i in items]
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = editing.emotion_control(pipe, latents, seed=1)
+    control_s = time.perf_counter() - t0
+    counts = _launch_counts() | {"ddim_sampler": _sampler_launches()}
+    variants = sum(len(v) for v in out.values())
+    want = {"attention_fwd": 8 * pipe.ast_cfg.depth, "attention_bwd": 0, "ddim_sampler": 64}
+    check(variants == 64 and counts == want,
+          f"emotion_control launched {counts} for {variants} variants, expected {want}")
+    for source in out.values():
+        for poses, trans in source.values():
+            check(poses.shape == (EDIT_WINDOWS, 300, 55, 3) and np.isfinite(poses).all()
+                  and np.isfinite(trans).all(), "emotion_control output bad")
+    src = latents[0]
+    again = editing.generate_with(pipe, src.con, src.emo, src.sty, seed=1)
+    check(all(np.array_equal(a, b) for a, b in zip(out[f"scott_{src.take}"]["self"], again)),
+          "a variant with the source's own emotion latent differs from 'self'")
+    style, style_s = {}, {}
+    for quirk in ("quirk", "straight"):
+        t0 = time.perf_counter()
+        style[quirk] = editing.style_transfer(pipe, latents[:1], latents[1:2], seed=1,
+                                              reference_quirk=quirk == "quirk")
+        style_s[quirk] = time.perf_counter() - t0
+    key = f"scott_{latents[0].take}"
+    check(not np.allclose(style["quirk"][key]["sty_scott"][0],
+                          style["straight"][key]["sty_scott"][0]),
+          "style_transfer with and without the reference quirk agree")
+    emit({"phase": "trace_edit", "windows": EDIT_WINDOWS,
+          "encode_take": trace_call(lambda: editing.encode_take(
+              pipe, src.actor, src.take, 0, items[0].waveform, items[0].motion, seed=1),
+              "encode_take"),
+          "generate_with": trace_call(lambda: editing.generate_with(
+              pipe, src.con, src.emo, src.sty, seed=1), "generate_with")})
+    row = {"phase": "edit_gesture", "takes": len(items), "windows_per_take": EDIT_WINDOWS,
+           "launches": counts, "variants": variants, "encode_s": encode_s,
+           "emotion_control_s": control_s,
+           "ms_per_generated_window": control_s * 1e3 / (variants * EDIT_WINDOWS),
+           "style_transfer_s": style_s,
+           "self_bit_equal": True}
+    emit(row)
+    return row
+
+
+def _sampler_launches() -> int:
+    from amuse_tpu_torch.ops import denoiser_kernel
+
+    return denoiser_kernel.ddim_sample_fused.launches
+
+
+def phase_prepare_data(pipe, root: Path) -> dict:
+    """The stage-2 cache and stage-1 quads on the card, through ``pipe``'s
+    flagship AST: 2 actors x the two neutral takes x EDIT_WINDOWS windows.
+    Checks the manifest (24 windows), 12 K1 launches per take, one take's
+    cached features against encode_audio on the same chunks, and the quad
+    count; times the frozen-AST pass alone and the whole build."""
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.audio import fbank
+    from amuse_tpu_torch.audio.wavio import load_wav_resampled
+    from amuse_tpu_torch.data import beat, cache, stage1
+
+    rng = np.random.default_rng(10)
+    for actor_id, name in ((2, "scott"), (9, "miranda")):
+        for take in ("0_9_9", "0_10_10"):
+            _write_take(root, actor_id, name, take, EDIT_WINDOWS, rng)
+    takes = beat.discover(root / "beat", root / "mosh")
+    subset = beat.stage2_subset(takes)
+    encode_s = []
+
+    def encode(chunks):
+        t0 = time.perf_counter()
+        out = {k: v.cpu().numpy() for k, v in pipe.encode_audio(chunks).items()}
+        encode_s.append(time.perf_counter() - t0)
+        return out
+
+    pipe.encode_audio(_chunks(EDIT_WINDOWS, 11))  # warm-up at the take's batch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    cache.build_stage2_cache(subset, root / "cache", encode, ast_source="chip_smoke",
+                             progress=False)
+    build_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    depth = pipe.ast_cfg.depth
+    check(counts == {"attention_fwd": depth * len(subset), "attention_bwd": 0},
+          f"the stage-2 pass launched {counts} for {len(subset)} takes, expected "
+          f"{depth} K1 per take")
+    manifest = json.loads((root / "cache" / "manifest.json").read_text())
+    check(len(subset) == 4 and manifest["num_windows"] == 4 * EDIT_WINDOWS,
+          f"manifest holds {manifest['num_windows']} windows of {len(subset)} takes, "
+          f"expected {4 * EDIT_WINDOWS}")
+    wc = cache.WindowCache(root / "cache")
+    ref = pipe.encode_audio(fbank.window_waveform(load_wav_resampled(subset[0].wav)))
+    feat_err = max(float(np.abs(np.stack([wc[i][k] for i in range(EDIT_WINDOWS)])
+                                - ref[k].cpu().numpy()).max()) for k in ("con", "emo", "sty"))
+    check(feat_err <= PREP_FEAT_TOL, f"cached features differ from encode_audio on the same "
+                                     f"chunks by {feat_err} > {PREP_FEAT_TOL}")
+    t0 = time.perf_counter()
+    per_take = stage1.fbanks_per_take(takes, stage1.device_fbank_fn("cuda"))
+    train = stage1.build_quads(per_take, "train")
+    stage1_s = time.perf_counter() - t0
+    check(train["emo_id"].shape[0] == EDIT_WINDOWS and train["fbank_bank"].shape
+          == (4 * EDIT_WINDOWS, 1024, 128) and np.isfinite(train["fbank_bank"]).all(),
+          f"stage-1 quads: {train['emo_id'].shape[0]}, expected {EDIT_WINDOWS}")
+    row = {"phase": "prepare_data", "takes": len(subset), "windows": manifest["num_windows"],
+           "launches": counts, "feature_max_abs_err": feat_err, "feature_tolerance": PREP_FEAT_TOL,
+           "ast_s": sum(encode_s), "ast_windows_per_s": manifest["num_windows"] / sum(encode_s),
+           "build_s": build_s, "build_s_per_take": build_s / len(subset),
+           "stage1_quads": int(train["emo_id"].shape[0]), "stage1_s": stage1_s}
+    emit(row)
+    return row
+
+
+# the tiny widths of the CPU drives, but the AST 64 wide: K1 takes head dims 32 and 64
+TINY_CFG = {"audio": {"ast_embed_dim": 64, "ast_depth": 1, "ast_heads": 2, "ast_feature_dim": 12},
+            "gesture": {"latent_dim": 16, "ff_size": 32, "num_layers": 3, "num_heads": 2,
+                        "cond_dim": 12, "num_inference_steps": 3},
+            "dtype": "float32"}
+
+
+def _run_cli(argv: list, log: Path, cwd: Path) -> None:
+    """The port's CLI in this process (stdout to ``log``), with the initial
+    DDIM latents drawn from a CPU generator seeded with the seed the CLI
+    gave: CUDA's and the CPU's generators draw different numbers, and this
+    is the only difference the card-against-CPU comparison must not see."""
+    import contextlib
+
+    import torch
+
+    from amuse_tpu_torch.cli import main as cli
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline
+
+    plain = GesturePipeline.generate_latents
+
+    def same_noise(self, con, emo=None, sty=None, generator=None, initial_latents=None):
+        shape = (con.shape[0], self.denoiser_cfg.latent_tokens, self.denoiser_cfg.latent_dim)
+        x0 = torch.randn(shape, generator=torch.Generator().manual_seed(generator.initial_seed()))
+        return plain(self, con, emo, sty, initial_latents=x0)
+
+    here = Path.cwd()
+    GesturePipeline.generate_latents = same_noise
+    try:
+        os.chdir(cwd)
+        with open(log, "a") as f, contextlib.redirect_stdout(f):
+            cli.main(argv)
+    finally:
+        os.chdir(here)
+        GesturePipeline.generate_latents = plain
+
+
+def phase_cli_edit_prepare(root: Path) -> dict:
+    """``--fn edit_gesture`` (emotion_control over two takes and the demo
+    swap, 2 windows each) and ``--fn prepare_data`` (5 takes, 10 windows, 2
+    stage-1 quads) at tiny widths (TINY_CFG), on the card and with
+    ``--device cpu``: the npz poses (as rotation matrices) and trans, the
+    cached features and the stage-1 fbanks within CLI_TOL; motion, audio and
+    labels of the caches bit-equal."""
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.audio.wavio import save_wav
+    from amuse_tpu_torch.core.rotations import axis_angle_to_matrix
+    from amuse_tpu_torch.data import cache, stage1
+
+    rng = np.random.default_rng(12)
+    for actor_id, name, take in ((2, "scott", "0_9_9"), (2, "scott", "0_10_10"),
+                                 (2, "scott", "0_65_65"), (9, "miranda", "0_9_9"),
+                                 (9, "miranda", "0_10_10")):
+        _write_take(root, actor_id, name, take, 2, rng)
+    demo = root / "viz_dump" / "test" / "e_speech"
+    demo.mkdir(parents=True)
+    for name in ("source_neutral.wav", "target_happy.wav"):
+        save_wav(demo / name, rng.normal(scale=0.05, size=330000).astype(np.float32))
+    env_ckpt = os.environ.pop("AMUSE_TPU_CKPT", None)
+    seconds, errs = {}, {"poses": 0.0, "trans": 0.0, "features": 0.0, "fbanks": 0.0}
+    try:
+        for device in ("cuda", "cpu"):
+            cfg = dict(TINY_CFG, out_dir=str(root / device / "runs"),
+                       data={"data_root": str(root / "beat"), "mosh_root": str(root / "mosh"),
+                             "cache_dir": str(root / device / "cache"),
+                             "stage1_dataset": str(root / device / "stage1.npz")},
+                       test={"emotion_control": True, "actors": ["scott"]})
+            (root / f"{device}.json").write_text(json.dumps(cfg))
+            for fn in ("edit_gesture", "prepare_data"):
+                t0 = time.perf_counter()
+                _run_cli(["--fn", fn, "--cfg", str(root / f"{device}.json"), "--device", device],
+                         OUT / f"cli_{fn}.log", root)
+                seconds[f"{fn}_{device}"] = time.perf_counter() - t0
+    finally:
+        if env_ckpt is not None:
+            os.environ["AMUSE_TPU_CKPT"] = env_ckpt
+    (gpu_run,), (cpu_run,) = ((root / d / "runs").iterdir() for d in ("cuda", "cpu"))
+    files = sorted(p.relative_to(gpu_run) for p in gpu_run.rglob("*.npz"))
+    check(len(files) == 2 * 2 * 2 + 2 * 2 and files == sorted(
+        p.relative_to(cpu_run) for p in cpu_run.rglob("*.npz")),
+        f"edit_gesture CLI wrote {len(files)} npz files on the card, not the CPU's 12")
+    for rel in files:
+        a, b = np.load(gpu_run / rel), np.load(cpu_run / rel)
+        errs["trans"] = max(errs["trans"], float(np.abs(a["trans"] - b["trans"]).max()))
+        rot = [axis_angle_to_matrix(torch.from_numpy(d["poses"])) for d in (a, b)]
+        errs["poses"] = max(errs["poses"], max_err(*rot))
+    gpu_cache, cpu_cache = (cache.WindowCache(root / d / "cache") for d in ("cuda", "cpu"))
+    check(len(gpu_cache) == len(cpu_cache) == 10, "prepare_data CLI caches hold other counts")
+    for i in range(len(gpu_cache)):
+        a, b = gpu_cache[i], cpu_cache[i]
+        for f in ("motion", "actor_id", "emo_label", "audio"):
+            check(np.array_equal(a[f], b[f]), f"cached {f} differs between card and CPU")
+        errs["features"] = max(errs["features"], max(float(np.abs(a[k] - b[k]).max())
+                                                     for k in ("con", "emo", "sty")))
+    (gpu_train, _), (cpu_train, _) = (stage1.load_dataset(root / d / "stage1.npz")
+                                      for d in ("cuda", "cpu"))
+    check(np.array_equal(gpu_train["quad_idx"], cpu_train["quad_idx"]), "quads differ")
+    errs["fbanks"] = float(np.abs(gpu_train["fbank_bank"] - cpu_train["fbank_bank"]).max())
+    check(all(e <= CLI_TOL for e in errs.values()),
+          f"the CLIs on the card disagree with the CPU: {errs} > {CLI_TOL}")
+    row = {"phase": "cli_edit_gesture_prepare_data", "npz_files": len(files),
+           "max_abs_err": errs, "tolerance": CLI_TOL, "seconds": seconds}
+    emit(row)
+    return row
+
+
+def run_edit_and_prepare(only: str | None = None, with_prepare: bool = False) -> dict:
+    """checkpoint_load, edit_gesture, prepare_data (through the loaded
+    flagship pipeline) and the CLIs; ``only="edit"`` runs the first two
+    (and prepare_data ``with_prepare``), ``only="prepare"`` prepare_data
+    alone through random flagship weights. Each in a temporary directory."""
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if only != "prepare":
+            (tmp / "released").mkdir()
+            pipe = phase_checkpoint_load(tmp / "released")
+            rows["edit"] = phase_edit(pipe, tmp / "edit")
+        else:
+            pipe = GesturePipeline(init_random_params(0), device="cuda")
+        if only != "edit" or with_prepare:
+            rows["prepare"] = phase_prepare_data(pipe, tmp / "prepare")
+        del pipe
+        if only is None:
+            rows["cli"] = phase_cli_edit_prepare(tmp / "cli")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
                                                  "PyTorch/CUDA port on one NVIDIA GPU.")
@@ -971,6 +1388,12 @@ def main(argv=None) -> int:
     parser.add_argument("--only-train-step", action="store_true",
                         help="the same for the flagship train step with its trace (host "
                              "enqueue and device time of two checkouts on one card)")
+    parser.add_argument("--only-edit", action="store_true",
+                        help="the same for checkpoint_load and edit_gesture at the flagship "
+                             "widths")
+    parser.add_argument("--only-prepare-data", action="store_true",
+                        help="the same for prepare_data's frozen-AST pass and stage-1 quads "
+                             "at the flagship AST widths")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -998,7 +1421,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     phase_build()
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
-            or args.only_train_step):
+            or args.only_train_step or args.only_edit or args.only_prepare_data):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -1009,8 +1432,12 @@ def main(argv=None) -> int:
             phase_main_path()
         if args.only_train_step:
             phase_train_step(args.train_steps)
+        if args.only_edit or args.only_prepare_data:
+            both = args.only_edit and args.only_prepare_data
+            run_edit_and_prepare("edit" if args.only_edit else "prepare", with_prepare=both)
         return 0
-    k1 = phase_attention()
+    k1_cases = phase_attention()
+    k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
     k3 = phase_sampler()
     phase_small_reference()
     launches = phase_main_path()
@@ -1019,6 +1446,7 @@ def main(argv=None) -> int:
     phase_train_small_vs_cpu()
     train_launches = phase_train_step(args.train_steps)
     phase_cli_train()
+    edit_rows = run_edit_and_prepare()
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/attention_fwd.cu",
@@ -1048,6 +1476,15 @@ def main(argv=None) -> int:
     kernels[0]["launches_per"] = "wav_to_motion call"
     kernels[1]["launches_per"] = "wav_to_motion call"
     kernels[0]["launches_per_train_step"] = train_launches["attention_fwd"]
+    prep = edit_rows["prepare"]
+    kernels[0]["launches_per_encode"] = prep["launches"]["attention_fwd"] // prep["takes"]
+    kernels[0]["launches_emotion_control"] = edit_rows["edit"]["launches"]["attention_fwd"]
+    kernels[0]["take_of_6_windows"] = {k: k1_take[k] for k in (
+        "shape", "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "tflops", "bound_share")}
+    edit = edit_rows["edit"]
+    kernels[1]["launches_per_edit_variant"] = edit["launches"]["ddim_sampler"] / edit["variants"]
+    kernels[1]["launches_emotion_control"] = edit["launches"]["ddim_sampler"]
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     (OUT / "kernels.json").write_text(json.dumps({"kernels": kernels, "nvidia_smi": smi,
                                                   "seconds": time.perf_counter() - t_start},

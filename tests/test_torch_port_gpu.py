@@ -7,6 +7,8 @@ conftest.py imports JAX, so on the GPU machine run it with
     python -m pytest tests/test_torch_port_gpu.py --noconftest -m gpu -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -494,3 +496,209 @@ def test_sampler_kernel_takes_every_shape_the_one_block_kernel_took(cuda):
     for d, ff, layers in shapes:
         cfg = DenoiserConfig(latent_dim=d, ff_size=ff, num_layers=layers, num_heads=1)
         dk.sampler_plan(d, ff, 1, layers, dk.cluster_for(cfg, 1))
+
+
+# ------------------------------------------------- edit and prepare_data paths
+#
+# Small widths with K1's head dim 32 (AST embed 64, 2 heads), float32: the
+# card against the CPU plain path from the same weights. Features atol 1e-4;
+# poses (as rotation matrices) and translation atol 1e-3, the bounds of the
+# port against JAX on the CPU.
+EDIT_FEAT_ATOL, EDIT_POSE_ATOL = 1e-4, 1e-3
+
+
+def _small_cfgs():
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+
+    return (PriorConfig(latent_dim=32, ff_size=64, num_layers=3, num_heads=2),
+            DenoiserConfig(latent_dim=32, ff_size=64, num_layers=3, num_heads=2, cond_dim=24),
+            ASTConfig(embed_dim=64, depth=2, num_heads=2, feature_dim=24))
+
+
+class _CpuNoise:
+    """A pipeline whose initial DDIM latents and VAE noise come from a CPU
+    generator seeded with the seed the editing code gave, so that the card
+    and the CPU start from the same numbers."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    @staticmethod
+    def _noise(generator, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(generator.initial_seed()))
+
+    def generate_latents(self, con, emo=None, sty=None, generator=None, initial_latents=None):
+        x0 = self._noise(generator, (con.shape[0], 1, self.pipe.denoiser_cfg.latent_dim))
+        return self.pipe.generate_latents(con, emo, sty, initial_latents=x0)
+
+    @torch.inference_mode()
+    def encode_motion(self, feats, generator=None):
+        noise = self._noise(generator, (feats.shape[0], 1, self.pipe.prior_cfg.latent_dim))
+        return self.pipe.prior.encode(feats, noise=noise.to(self.pipe.device))[0]
+
+
+@pytest.fixture(scope="module")
+def edit_pipes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run on the H100)")
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+
+    cfgs = _small_cfgs()
+    params = init_random_params(5, *cfgs)
+    return {dev: _CpuNoise(GesturePipeline(params, *cfgs, dtype=torch.float32,
+                                           num_inference_steps=10, device=dev))
+            for dev in ("cpu", "cuda")}
+
+
+def _edit_inputs():
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    out = []
+    for i, windows in enumerate((2, 2, 3)):
+        wave = rng.normal(scale=0.05, size=(1, windows * 160000 + 999)).astype(np.float32)
+        t = windows * 300 + 4
+        motion = np.concatenate([0.2 * rng.normal(size=(t, 165)), 0.1 * rng.normal(size=(t, 3))],
+                                axis=1).astype(np.float32)
+        out.append((("scott", "miranda", "scott")[i], ("0_9_9", "0_9_9", "0_65_65")[i], wave,
+                    motion))
+    return out
+
+
+def _assert_motion_close(a, b):
+    import numpy as np
+
+    from amuse_tpu_torch.core.rotations import axis_angle_to_matrix
+
+    np.testing.assert_allclose(a[1], b[1], atol=EDIT_POSE_ATOL, rtol=1e-3)
+    np.testing.assert_allclose(axis_angle_to_matrix(torch.from_numpy(a[0])).numpy(),
+                               axis_angle_to_matrix(torch.from_numpy(b[0])).numpy(),
+                               atol=EDIT_POSE_ATOL, rtol=1e-3)
+
+
+@pytest.mark.parametrize("task", ["emotion_control", "style_transfer", "style_xemo_transfer",
+                                  "content_control", "demo_emotion_swap"])
+def test_editing_on_the_card_matches_cpu(edit_pipes, task):
+    """Each editing function on the card against the CPU plain path, with the
+    launch counts of the card's run: K1 ``depth`` times per encode, K3 once
+    per generated variant."""
+    from amuse_tpu_torch.infer import editing
+    from amuse_tpu_torch.ops import attention, denoiser_kernel
+
+    outs, counts = {}, {}
+    for dev, pipe in edit_pipes.items():
+        attention.mha.launches = denoiser_kernel.ddim_sample_fused.launches = 0
+        if task == "demo_emotion_swap":
+            (_, _, a, _), (_, _, b, _), _ = _edit_inputs()
+            out = editing.demo_emotion_swap(pipe, a, b, seed=2)
+            encodes = 2
+        else:
+            lat = [editing.encode_take(pipe, actor, take, 0, wave, motion, seed=3)
+                   for actor, take, wave, motion in _edit_inputs()]
+            encodes = len(lat)
+            out = {"emotion_control": lambda: editing.emotion_control(pipe, lat[::2], seed=2),
+                   "style_transfer": lambda: editing.style_transfer(pipe, lat[:1], lat[1:2],
+                                                                    seed=2),
+                   "style_xemo_transfer": lambda: editing.style_xemo_transfer(
+                       pipe, lat[0], lat[2], lat[1], dataclasses.replace(lat[1], take="0_65_65"),
+                       seed=2),
+                   "content_control": lambda: editing.content_control(pipe, lat[::2], seed=2),
+                   }[task]()
+            if dev == "cuda":
+                for i, t in enumerate(lat):
+                    cpu = outs["cpu_latents"][i]
+                    for k in ("con", "emo", "sty", "z_motion"):
+                        torch.testing.assert_close(getattr(t, k).cpu(), getattr(cpu, k),
+                                                   atol=EDIT_FEAT_ATOL, rtol=1e-3)
+            else:
+                outs["cpu_latents"] = lat
+        variants = sum(len(v) for v in out.values()) if task != "demo_emotion_swap" else 2
+        counts[dev] = (attention.mha.launches, denoiser_kernel.ddim_sample_fused.launches)
+        outs[dev] = out
+    assert counts == {"cpu": (0, 0), "cuda": (encodes * 2, variants)}
+    if task == "demo_emotion_swap":
+        for k in ("original", "emotion_swapped"):
+            _assert_motion_close(outs["cuda"][k], outs["cpu"][k])
+        return
+    assert outs["cuda"].keys() == outs["cpu"].keys()
+    for source, variants_out in outs["cpu"].items():
+        assert outs["cuda"][source].keys() == variants_out.keys()
+        for variant, motion in variants_out.items():
+            _assert_motion_close(outs["cuda"][source][variant], motion)
+
+
+def test_released_dir_loads_on_the_card(cuda, tmp_path, monkeypatch):
+    """A released directory (DataParallel AST, denoiser.-prefixed latdiff,
+    decoys) loads into a pipeline on the card with every parameter bit-equal."""
+    from amuse_tpu_torch.infer.pipeline import ENCODERS, GesturePipeline
+    from amuse_tpu_torch.models.ast import ASTDisentangler
+    from amuse_tpu_torch.models.denoiser import Denoiser
+    from amuse_tpu_torch.models.vae import MotionPrior
+    from amuse_tpu_torch.utils import checkpoint_io
+
+    prior_cfg, den_cfg, ast_cfg = _small_cfgs()
+    torch.manual_seed(0)
+    sds = {"ast": ASTDisentangler(ast_cfg, fusion_dim=16).state_dict(),
+           "prior": MotionPrior(prior_cfg).state_dict(), "denoiser": Denoiser(den_cfg).state_dict()}
+    torch.save({f"module.{k}": v for k, v in sds["ast"].items()},
+               tmp_path / "model_4_tL0.1_tEA0.9_tPA0.1_vL0.1_vEA0.1_vPA0.1.pkl")
+    torch.save({"decoy": torch.zeros(1)},
+               tmp_path / "model_2_tL0.1_tEA0.5_tPA0.9_vL0_vEA0_vPA0.pkl")
+    torch.save(sds["prior"], tmp_path / "prior_model_NoOpt_total1.0000_e5.pt")
+    torch.save({"decoy": torch.zeros(1)}, tmp_path / "prior_model_NoOpt_total0.1000_e6.pt")
+    torch.save({"model_state_dict": {f"denoiser.{k}": v for k, v in sds["denoiser"].items()}},
+               tmp_path / "latdiff_model_wOpt_total0.2000_e5.pt")
+    torch.save({"decoy": torch.zeros(1)}, tmp_path / "latdiff_model_wOpt_total0.3000_e6.pt")
+    monkeypatch.setenv("AMUSE_TPU_CKPT", str(tmp_path))
+    pipe = GesturePipeline(checkpoint_io.load_pipeline_params(), prior_cfg, den_cfg, ast_cfg,
+                           dtype=torch.float32, device=cuda)
+    for kind, module in (("prior", pipe.prior), ("denoiser", pipe.denoiser)):
+        for k, v in module.state_dict().items():
+            assert v.is_cuda and torch.equal(v.cpu(), sds[kind][k]), (kind, k)
+    for k, v in pipe.ast_params.items():
+        assert torch.equal(v.cpu(), torch.stack([sds["ast"][f"{n}_enc.{k}"] for n in ENCODERS]))
+
+
+def test_stage2_cache_on_the_card_matches_cpu(edit_pipes, tmp_path):
+    """build_stage2_cache through encode_audio on the card and on the CPU:
+    manifests equal, motion, audio and labels bit-equal, features within
+    EDIT_FEAT_ATOL; 2 K1 launches (the AST depth) per take on the card."""
+    import json
+
+    import numpy as np
+
+    from amuse_tpu_torch.audio.wavio import save_wav
+    from amuse_tpu_torch.data import beat, cache
+    from amuse_tpu_torch.ops import attention
+
+    (tmp_path / "mosh").mkdir()
+    for (actor, take, wave, motion), aid in zip(_edit_inputs(), (2, 9, 2)):
+        (tmp_path / "beat" / str(aid)).mkdir(parents=True, exist_ok=True)
+        save_wav(tmp_path / "beat" / str(aid) / f"{aid}_{actor}_{take}.wav", wave)
+        np.savez(tmp_path / "mosh" / f"{aid}_{actor}_{take}.npz", poses=motion[:, :165],
+                 trans=motion[:, 165:])
+    subset = beat.stage2_subset(beat.discover(tmp_path / "beat", tmp_path / "mosh"))
+    counts = {}
+    for dev, pipe in edit_pipes.items():
+        attention.mha.launches = 0
+        cache.build_stage2_cache(
+            subset, tmp_path / dev,
+            lambda c, pipe=pipe: {k: v.cpu().numpy() for k, v in pipe.encode_audio(c).items()},
+            progress=False)
+        counts[dev] = attention.mha.launches
+    assert counts == {"cpu": 0, "cuda": 2 * len(subset)} and len(subset) == 3
+    manifest = json.loads((tmp_path / "cuda" / "manifest.json").read_text())
+    assert manifest == json.loads((tmp_path / "cpu" / "manifest.json").read_text())
+    assert manifest["num_windows"] == 7
+    a, b = cache.WindowCache(tmp_path / "cuda"), cache.WindowCache(tmp_path / "cpu")
+    for i in range(len(a)):
+        for f in cache.FIELDS:
+            if f in ("con", "emo", "sty"):
+                np.testing.assert_allclose(a[i][f], b[i][f], atol=EDIT_FEAT_ATOL, rtol=1e-3)
+            else:
+                np.testing.assert_array_equal(a[i][f], b[i][f])

@@ -212,8 +212,9 @@ class TestCli:
             cli.main(["--fn", "train_gesture", "--cfg", str(cfg)])
         with pytest.raises(SystemExit):
             cli.main(["--fn", "no_such_task"])
+        # a configured checkpoint that is no checkpoint raises, never random weights
         monkeypatch.setenv("AMUSE_TPU_CKPT", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(FileNotFoundError, match="neither a run directory"):
             cli.main(["--fn", "infer_gesture", "--cfg", str(cfg), "--wav-dir", str(wavs),
                       "--device", "cpu"])
         monkeypatch.delenv("AMUSE_TPU_CKPT")
