@@ -66,8 +66,7 @@ class AudioStageConfig:
     ast_depth: int = 12
     ast_heads: int = 12
     ast_feature_dim: int = 256
-    # tanh-approximate GELU (a JAX-package knob); the port runs exact erf
-    # GELU only and refuses True
+    # tanh-approximate GELU in the ViT blocks (perf knob; default exact erf)
     gelu_tanh: bool = False
 
 
@@ -84,9 +83,9 @@ class GestureStageConfig:
     skip_trans: bool = False
     train_upper_body: bool = False
     vtex_displacement: bool = True
-    # training-side knobs of the JAX package (not ported yet): vertex
-    # subset of the displacement monitors (0 = full mesh), monitor period,
-    # native prefetch loader
+    # vertex subset of the displacement monitors (0 = full mesh), the DDIM
+    # monitor's period in steps, and the JAX package's native ABIN loader
+    # (not ported: the port refuses True, ROADMAP item 23)
     vtex_subsample: int = 0
     monitor_every: int = 1
     native_loader: bool = False

@@ -1,6 +1,7 @@
 """CLI of the PyTorch/CUDA port.
 
-    python -m amuse_tpu_torch.cli.main --fn {infer_gesture,edit_gesture,prepare_data,train_audio}
+    python -m amuse_tpu_torch.cli.main
+        --fn {infer_gesture,edit_gesture,prepare_data,train_audio,train_gesture}
         [--cfg tiny.json] [--set key=value ...] [--wav-dir DIR] [--device cuda|cpu]
 
 ``infer_gesture`` turns every WAV under ``--wav-dir`` into SMPL-X npz files,
@@ -21,6 +22,13 @@ dataset at ``data.stage1_dataset``, each skipped when already built.
 ``data.stage1_dataset``, one device, and writes ``metrics.jsonl`` and a
 checkpoint per epoch under ``<out_dir>/<timestamp>/`` unless ``debug``;
 ``resume=<checkpoint dir>`` continues a run.
+
+``train_gesture`` trains the stage-2 motion prior and denoiser (LPDM) on the
+window cache at ``data.cache_dir``, one device, with the DDIM monitor (K3 on
+the card) every ``gesture.monitor_every`` steps and the SMPL-X vertex
+monitors when ``data.smplx_model_dir/SMPLX_NEUTRAL.npz`` exists; it writes
+``metrics.jsonl`` and a checkpoint every ``gesture.model_save_freq`` epochs,
+which ``AMUSE_TPU_CKPT`` loads into ``infer_gesture``/``edit_gesture``.
 
 Weights come from ``AMUSE_TPU_CKPT`` (and ``AMUSE_TPU_AST_CKPT``), read by
 ``utils/checkpoint_io.py``; with neither set they are random, seeded by
@@ -62,20 +70,20 @@ def _model_cfgs(cfg):
             "gesture.train_upper_body reproduces a broken reference path; "
             "train with smplx_rep='3D' instead"
         )
-    if a.gelu_tanh:
-        raise NotImplementedError("audio.gelu_tanh is not ported; the port runs exact GELU")
     nfeats = (FEATS_6D if g.smplx_rep == "6D" else RAW_FEATS) - (3 if g.skip_trans else 0)
     prior_cfg = PriorConfig(
         nfeats=nfeats, latent_dim=g.latent_dim, ff_size=g.ff_size,
-        num_layers=g.num_layers, num_heads=g.num_heads, window=cfg.data.window_frames,
+        num_layers=g.num_layers, num_heads=g.num_heads, dropout=g.dropout,
+        window=cfg.data.window_frames,
     )
     den_cfg = DenoiserConfig(
         latent_dim=g.latent_dim, ff_size=g.ff_size, num_layers=g.num_layers,
-        num_heads=g.num_heads, cond_dim=g.cond_dim,
+        num_heads=g.num_heads, dropout=g.dropout, cond_dim=g.cond_dim,
     )
     ast_cfg = ASTConfig(
         input_tdim=a.target_length, input_fdim=a.num_mel_bins, embed_dim=a.ast_embed_dim,
         depth=a.ast_depth, num_heads=a.ast_heads, feature_dim=a.ast_feature_dim,
+        gelu_tanh=a.gelu_tanh,
     )
     return prior_cfg, den_cfg, ast_cfg
 
@@ -336,6 +344,85 @@ def task_train_audio(cfg, device: torch.device):
             ckpt.save(epoch + 1, state.state_dict(), metrics)
 
 
+def task_train_gesture(cfg, device: torch.device):
+    """Stage-2 LPDM joint training (reference: trainer.train_prior_latdiff_
+    forward_backward_v2), one device."""
+    import dataclasses
+
+    import numpy as np
+
+    from amuse_tpu_torch.core import smplx as smplx_mod
+    from amuse_tpu_torch.data.cache import WindowCache, betas_for_actor_ids
+    from amuse_tpu_torch.data.prefetch import prefetch_to_device
+    from amuse_tpu_torch.train import gesture as tg
+    from amuse_tpu_torch.train.audio import step_generator
+    from amuse_tpu_torch.train.checkpoint import CheckpointManager, restore_train_state
+    from amuse_tpu_torch.utils.logging import RunLogger
+
+    g = cfg.gesture
+    if g.native_loader:
+        raise NotImplementedError(
+            "gesture.native_loader (the JAX package's C++ ABIN loader) is not ported "
+            "(ROADMAP item 23); train with native_loader=false")
+    run_dir = _setup(cfg)
+    logger = RunLogger(None if cfg.debug else run_dir)
+    tcfg = tg.GestureTrainConfig(
+        learning_rate=g.learning_rate, batch_size=max(1, g.batch_size), epochs=g.epochs,
+        num_inference_steps=g.num_inference_steps, monitor_every=max(1, g.monitor_every),
+        vtex_displacement=g.vtex_displacement, checkpoint_every=g.model_save_freq,
+        smplx_rep=g.smplx_rep, skip_trans=g.skip_trans,
+    )
+    smplx_path = Path(cfg.data.smplx_model_dir) / "SMPLX_NEUTRAL.npz"
+    smplx_model = smplx_mod.load_model(smplx_path) if smplx_path.exists() else None
+    if g.vtex_displacement and smplx_model is None:
+        print("[LPDM-T] SMPL-X model npz not found; vertex monitor disabled")
+    if smplx_model is not None and g.vtex_subsample > 0:
+        smplx_model = smplx_mod.subsample_vertices(smplx_model, g.vtex_subsample,
+                                                   seed=cfg.seed)
+        print(f"[LPDM-T] vertex monitor subsampled to {smplx_model.num_vertices} "
+              "vertices (exact per-vertex, unbiased mean)")
+    if smplx_model is not None:
+        smplx_model = smplx_model.to(device)
+
+    prior_cfg, den_cfg, _ = _model_cfgs(cfg)
+    data = WindowCache(Path(cfg.data.cache_dir))
+    if len(data) == 0:
+        raise RuntimeError(f"window cache {cfg.data.cache_dir} is empty - nothing would train")
+    if len(data) < tcfg.batch_size:  # else an epoch would take no step
+        print(f"[LPDM-T] batch {tcfg.batch_size} > cache {len(data)}; clamped to {len(data)}")
+        tcfg = dataclasses.replace(tcfg, batch_size=len(data))
+    # two step functions: with the DDIM/vertex monitor (every monitor_every-th
+    # step) and without; the monitors carry no gradient
+    step_mon = tg.make_train_step(prior_cfg, den_cfg, tcfg, smplx_model, with_monitor=True)
+    step_fast = (tg.make_train_step(prior_cfg, den_cfg, tcfg, smplx_model, with_monitor=False)
+                 if tcfg.monitor_every > 1 else step_mon)
+    state = tg.init_state(cfg.seed, prior_cfg, den_cfg, tcfg, device)
+    start_epoch = 0
+    if cfg.resume:
+        state, start_epoch = restore_train_state(cfg.resume, state, "LPDM-T")
+    ckpt = None if cfg.debug else CheckpointManager(run_dir / "checkpoints")
+
+    def host_batches(epoch):
+        # epoch-keyed shuffle: a resumed run sees the batch order of an unbroken one
+        rng = np.random.default_rng([cfg.seed, epoch])
+        for b in data.batches(tcfg.batch_size, rng):
+            yield {"motion": b["motion"], "con": b["con"], "emo": b["emo"], "sty": b["sty"],
+                   "betas": betas_for_actor_ids(b["actor_id"])}
+
+    for epoch in range(start_epoch, tcfg.epochs):
+        t0, logs = time.time(), {}
+        for i, batch in enumerate(prefetch_to_device(host_batches(epoch), 2, device)):
+            fn = step_mon if i % tcfg.monitor_every == 0 else step_fast
+            logs = fn(state, batch, step_generator(cfg.seed, epoch, i, device))
+        metrics = {f"train_{k}": float(v) for k, v in logs.items()}
+        logger.log(epoch, metrics)
+        print(f"[LPDM-T] epoch {epoch + 1}/{tcfg.epochs} ({time.time() - t0:.1f}s): "
+              + ", ".join(f"{k}={v:.6f}" for k, v in metrics.items()))
+        if ckpt and (epoch + 1) % tcfg.checkpoint_every == 0:
+            # full state: parameters, AdamW moments, step
+            ckpt.save(epoch + 1, state.state_dict(), metrics)
+
+
 def task_infer_gesture(cfg, wav_dir: str = "viz_dump/test/speech", device: str = "cuda"):
     """Custom WAV -> SMPL-X npz per 10 s window."""
     from amuse_tpu_torch.audio.fbank import CHUNK_SAMPLES
@@ -385,7 +472,8 @@ def main(argv=None):
     if args.fn not in TASK_NAMES:
         p.error(f"unknown --fn {args.fn!r}; tasks: {', '.join(TASK_NAMES)}")
     ported = {"edit_gesture": task_edit_gesture, "infer_gesture": task_infer_gesture,
-              "prepare_data": task_prepare_data, "train_audio": task_train_audio}
+              "prepare_data": task_prepare_data, "train_audio": task_train_audio,
+              "train_gesture": task_train_gesture}
     if args.fn not in ported:
         raise SystemExit(f"--fn {args.fn}: not yet ported to amuse_tpu_torch "
                          f"({', '.join(ported)} are)")

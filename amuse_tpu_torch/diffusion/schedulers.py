@@ -51,6 +51,15 @@ def make_schedule(
     )
 
 
+def add_noise(schedule: DiffusionSchedule, sample: torch.Tensor, noise: torch.Tensor,
+              timesteps: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0) = sqrt(acp_t) x_0 + sqrt(1 - acp_t) eps for (B,) int
+    ``timesteps`` (DDPMScheduler.add_noise), on ``sample``'s device."""
+    acp = schedule.alphas_cumprod.to(sample.device)[timesteps]
+    acp = acp.reshape(acp.shape + (1,) * (sample.dim() - acp.dim()))
+    return torch.sqrt(acp) * sample + torch.sqrt(1.0 - acp) * noise
+
+
 def ddim_timesteps(schedule: DiffusionSchedule, num_inference_steps: int = 50,
                    steps_offset: int = 1) -> torch.Tensor:
     """Descending int64 inference timesteps, diffusers "leading" spacing + offset."""

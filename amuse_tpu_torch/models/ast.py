@@ -52,6 +52,9 @@ class ASTConfig:
     # recompute each ViT block in the backward (torch.utils.checkpoint)
     # instead of keeping its activations; the block's K1 then runs twice
     remat: bool = False
+    # tanh-approximate GELU in the ViT blocks' MLP: opt-in perf knob
+    # (default exact erf, the torch/timm parity choice)
+    gelu_tanh: bool = False
 
     @property
     def f_patches(self) -> int:
@@ -104,7 +107,7 @@ class ViTBlock(nn.Module):
     def __init__(self, cfg: ASTConfig):
         super().__init__()
         d = cfg.embed_dim
-        self.num_heads = cfg.num_heads
+        self.num_heads, self.gelu_tanh = cfg.num_heads, cfg.gelu_tanh
         self.norm1 = nn.LayerNorm(d, eps=_VIT_LN_EPS)
         self.attn = _Attention(d)
         self.norm2 = nn.LayerNorm(d, eps=_VIT_LN_EPS)
@@ -112,7 +115,7 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, E) -> (B, S, E)."""
-        return vit_block(x[None], _stacked(self), "", self.num_heads)[0]
+        return vit_block(x[None], _stacked(self), "", self.num_heads, self.gelu_tanh)[0]
 
 
 class _ViT(nn.Module):
@@ -181,7 +184,8 @@ def _linear(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
     return y.reshape(x.shape[:-1] + (w.shape[1],))
 
 
-def vit_block(x: torch.Tensor, p: dict, prefix: str, num_heads: int) -> torch.Tensor:
+def vit_block(x: torch.Tensor, p: dict, prefix: str, num_heads: int,
+              gelu_tanh: bool = False) -> torch.Tensor:
     """One pre-norm ViT block on x (G, N, S, E) with stacked params ``p``.
 
     Attention is ``mha_train`` (K1 forward, K2 backward on CUDA) when the
@@ -197,7 +201,8 @@ def vit_block(x: torch.Tensor, p: dict, prefix: str, num_heads: int) -> torch.Te
         o = mha(*(qkv[:, :, i].transpose(1, 2) for i in range(3)))
     x = x + _linear(o.transpose(1, 2).reshape(g, n, s, e), p, _pre(prefix, "attn.proj"))
     h = _layer_norm(x, p, _pre(prefix, "norm2"), _VIT_LN_EPS)
-    h = F.gelu(_linear(h, p, _pre(prefix, "mlp.fc1")), approximate="none")
+    h = F.gelu(_linear(h, p, _pre(prefix, "mlp.fc1")),
+               approximate="tanh" if gelu_tanh else "none")
     return x + _linear(h, p, _pre(prefix, "mlp.fc2"))
 
 
@@ -222,7 +227,7 @@ def ast_encode(p: dict, spec: torch.Tensor, cfg: ASTConfig,
     dist = p["v.dist_token"].view(g, 1, 1, e).expand(g, n, 1, e)
     x = torch.cat([cls, dist, x], dim=2) + pos.view(g, 1, -1, e)
     for i in range(cfg.depth):
-        args = (x, p, f"v.blocks.{i}", cfg.num_heads)
+        args = (x, p, f"v.blocks.{i}", cfg.num_heads, cfg.gelu_tanh)
         if cfg.remat and torch.is_grad_enabled():
             x = checkpoint(vit_block, *args, use_reentrant=False)
         else:

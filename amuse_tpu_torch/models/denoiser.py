@@ -10,7 +10,9 @@ Port of ``amuse_tpu/models/denoiser.py`` (reference ``Denoiser``,
 The emotion/style tokens are dropped when their condition is ``None``, so
 the sequence holds 3 to 5 tokens. Parameter names are the reference keys
 (``time_embedding.linear_{1,2}``, ``emb_proj_{con,emo,sty}.1``,
-``query_pos.pe``, ``encoder.*``).
+``query_pos.pe``, ``encoder.*``). The encoder's layers drop with
+``cfg.dropout`` in training mode only, from the ``generator`` given to
+``forward``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ class DenoiserConfig:
     ff_size: int = 512
     num_layers: int = 9
     num_heads: int = 4
+    dropout: float = 0.1
     activation: str = "gelu"
     normalize_before: bool = False
     cond_dim: int = 256
@@ -91,7 +94,7 @@ class Denoiser(nn.Module):
         self.emb_proj_sty = CondProj(cfg.cond_dim, d)
         self.query_pos = LearnedPositionalEmbedding(d, cfg.max_len)
         self.encoder = SkipEncoder(d, cfg.num_heads, cfg.ff_size, cfg.num_layers,
-                                   cfg.activation, cfg.normalize_before)
+                                   cfg.activation, cfg.normalize_before, cfg.dropout)
 
     def time_tokens(self, timesteps: torch.Tensor) -> torch.Tensor:
         """(B,) int timesteps -> (B, latent_dim) time tokens (before positions)."""
@@ -113,6 +116,7 @@ class Denoiser(nn.Module):
         cond_con: torch.Tensor,  # (B, cond_dim)
         cond_emo: Optional[torch.Tensor] = None,
         cond_sty: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         b = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -121,5 +125,5 @@ class Denoiser(nn.Module):
         tokens = [sample.to(torch.float32), self.time_tokens(timesteps)[:, None, :]]
         tokens += [tok[:, None, :] for tok in self.cond_tokens(cond_con, cond_emo, cond_sty)]
         xseq = self.query_pos(torch.cat(tokens, dim=1))  # (B, 3..5, D)
-        out = self.encoder(xseq)
+        out = self.encoder(xseq, None, generator)
         return out[:, : self.cfg.latent_tokens].to(torch.float32)

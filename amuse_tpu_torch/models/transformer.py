@@ -11,8 +11,10 @@ ops: its JAX counterpart is XLA einsum, not a Pallas kernel.
 
 ``EncoderLayer(dropout=p)`` drops, in training mode only, the attention
 weights, the FFN activation and both residual branches, as the JAX layer
-does; the masks come from the ``torch.Generator`` passed to ``forward``.
-With the default ``dropout=0.0`` (inference) nothing is drawn.
+does; ``DecoderLayer(dropout=p)`` the same around its self- and
+cross-attention and FFN. The masks come from the ``torch.Generator`` passed
+to ``forward`` (the skip stacks pass theirs to every layer). With the
+default ``dropout=0.0`` (inference) nothing is drawn.
 """
 
 from __future__ import annotations
@@ -92,10 +94,9 @@ class MultiHeadAttention(nn.Module):
 
 
 def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
-                 activation: str = "gelu") -> torch.Tensor:
-    """Linear -> activation -> Linear: the decoder layer's FFN (the encoder
-    layer runs the same with its dropouts)."""
-    return linear2(_activation(activation)(linear1(x)))
+                 activation: str = "gelu", drop=lambda y: y) -> torch.Tensor:
+    """Linear -> activation -> ``drop`` -> Linear: the layers' FFN."""
+    return linear2(drop(_activation(activation)(linear1(x))))
 
 
 class EncoderLayer(nn.Module):
@@ -123,7 +124,7 @@ class EncoderLayer(nn.Module):
             return drop(self.self_attn(y, y, y, key_padding_mask, generator))
 
         def ffn(y):
-            return drop(self.linear2(drop(_activation(self.activation)(self.linear1(y)))))
+            return drop(feed_forward(y, self.linear1, self.linear2, self.activation, drop))
 
         if self.normalize_before:
             x = x + attn(self.norm1(x))
@@ -136,10 +137,12 @@ class DecoderLayer(nn.Module):
     """Post/pre-norm decoder layer: self-attn -> cross-attn -> FFN."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int,
-                 activation: str = "gelu", normalize_before: bool = False):
+                 activation: str = "gelu", normalize_before: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
-        self.multihead_attn = MultiHeadAttention(d_model, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
+        self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=_TORCH_LN_EPS)
@@ -154,18 +157,27 @@ class DecoderLayer(nn.Module):
         memory: torch.Tensor,
         tgt_key_padding_mask: Optional[torch.Tensor] = None,
         memory_key_padding_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        ffn = lambda x: feed_forward(x, self.linear1, self.linear2, self.activation)  # noqa: E731
+        def drop(y):
+            return dropout(y, self.dropout, self.training, generator)
+
+        def self_attn(y):
+            return drop(self.self_attn(y, y, y, tgt_key_padding_mask, generator))
+
+        def cross_attn(y):
+            return drop(self.multihead_attn(y, memory, memory, memory_key_padding_mask,
+                                            generator))
+
+        def ffn(y):
+            return drop(feed_forward(y, self.linear1, self.linear2, self.activation, drop))
+
         if self.normalize_before:
-            h = self.norm1(tgt)
-            tgt = tgt + self.self_attn(h, h, h, tgt_key_padding_mask)
-            h = self.norm2(tgt)
-            tgt = tgt + self.multihead_attn(h, memory, memory, memory_key_padding_mask)
+            tgt = tgt + self_attn(self.norm1(tgt))
+            tgt = tgt + cross_attn(self.norm2(tgt))
             return tgt + ffn(self.norm3(tgt))
-        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt, tgt_key_padding_mask))
-        tgt = self.norm2(
-            tgt + self.multihead_attn(tgt, memory, memory, memory_key_padding_mask)
-        )
+        tgt = self.norm1(tgt + self_attn(tgt))
+        tgt = self.norm2(tgt + cross_attn(tgt))
         return self.norm3(tgt + ffn(tgt))
 
 
@@ -174,15 +186,19 @@ class _SkipStack(nn.Module):
 
     num_layers must be odd: (L-1)/2 input blocks, a middle block, (L-1)/2
     output blocks each fed by ``Linear(cat(x, skip))``, then a LayerNorm.
+    ``dropout`` is every layer's.
     """
 
     def __init__(self, layer_cls, d_model: int, num_heads: int, ff_size: int,
-                 num_layers: int, activation: str, normalize_before: bool):
+                 num_layers: int, activation: str, normalize_before: bool, dropout: float):
         super().__init__()
         if num_layers % 2 != 1:
             raise ValueError(f"skip stack needs an odd layer count, got {num_layers}")
         n = (num_layers - 1) // 2
-        make = lambda: layer_cls(d_model, num_heads, ff_size, activation, normalize_before)  # noqa: E731
+
+        def make():
+            return layer_cls(d_model, num_heads, ff_size, activation, normalize_before, dropout)
+
         self.input_blocks = nn.ModuleList(make() for _ in range(n))
         self.middle_block = make()
         self.output_blocks = nn.ModuleList(make() for _ in range(n))
@@ -202,23 +218,28 @@ class _SkipStack(nn.Module):
 
 class SkipEncoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, ff_size: int, num_layers: int = 9,
-                 activation: str = "gelu", normalize_before: bool = False):
+                 activation: str = "gelu", normalize_before: bool = False,
+                 dropout: float = 0.0):
         super().__init__(EncoderLayer, d_model, num_heads, ff_size, num_layers,
-                         activation, normalize_before)
+                         activation, normalize_before, dropout)
 
-    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None):
-        return self._run(x, lambda block, h: block(h, key_padding_mask))
+    def forward(self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        return self._run(x, lambda block, h: block(h, key_padding_mask, generator))
 
 
 class SkipDecoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, ff_size: int, num_layers: int = 9,
-                 activation: str = "gelu", normalize_before: bool = False):
+                 activation: str = "gelu", normalize_before: bool = False,
+                 dropout: float = 0.0):
         super().__init__(DecoderLayer, d_model, num_heads, ff_size, num_layers,
-                         activation, normalize_before)
+                         activation, normalize_before, dropout)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
-                tgt_key_padding_mask: Optional[torch.Tensor] = None):
-        return self._run(tgt, lambda block, h: block(h, memory, tgt_key_padding_mask, None))
+                tgt_key_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        return self._run(tgt, lambda block, h: block(h, memory, tgt_key_padding_mask, None,
+                                                     generator))
 
 
 class LearnedPositionalEmbedding(nn.Module):

@@ -6,6 +6,8 @@ the decoder's queries are zero vectors + learned positions cross-attending
 the latent token. Parameter names are the reference keys
 (``skel_embedding``, ``global_motion_token``, ``query_pos_encoder.pe``,
 ``query_pos_decoder.pe``, ``encoder.*``, ``decoder.*``, ``final_layer``).
+Every layer drops with ``cfg.dropout`` in training mode only, its masks
+drawn from the ``generator`` given to ``encode``/``decode``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ class PriorConfig:
     ff_size: int = 512
     num_layers: int = 9
     num_heads: int = 4
+    dropout: float = 0.1
     activation: str = "gelu"
     normalize_before: bool = False
     window: int = 300
@@ -48,12 +51,13 @@ class MotionPrior(nn.Module):
         self.query_pos_encoder = LearnedPositionalEmbedding(d, cfg.max_len)
         self.query_pos_decoder = LearnedPositionalEmbedding(d, cfg.max_len)
         args = (d, cfg.num_heads, cfg.ff_size, cfg.num_layers, cfg.activation,
-                cfg.normalize_before)
+                cfg.normalize_before, cfg.dropout)
         self.encoder = SkipEncoder(*args)
         self.decoder = SkipDecoder(*args)
         self.final_layer = nn.Linear(d, cfg.nfeats)
 
-    def encode_params(self, features: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+    def encode_params(self, features: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
         """(B, T, nfeats) -> (mu, logvar), each (B, latent_tokens, latent_dim) float32."""
         cfg = self.cfg
         b, t, _ = features.shape
@@ -64,7 +68,7 @@ class MotionPrior(nn.Module):
         if mask is not None:
             keep = torch.ones((b, 2 * cfg.latent_tokens), dtype=torch.bool, device=mask.device)
             mask = torch.cat([keep, mask], dim=1)
-        out = self.encoder(xseq, mask)
+        out = self.encoder(xseq, mask, generator)
         mu = out[:, : cfg.latent_tokens]
         logvar = out[:, cfg.latent_tokens : 2 * cfg.latent_tokens]
         return mu.to(torch.float32), logvar.to(torch.float32)
@@ -75,13 +79,14 @@ class MotionPrior(nn.Module):
 
         ``noise`` replaces the N(0, 1) draw from ``generator``.
         """
-        mu, logvar = self.encode_params(features, lengths)
+        mu, logvar = self.encode_params(features, lengths, generator)
         if noise is None:
             noise = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
         return mu + torch.exp(0.5 * logvar) * noise, (mu, logvar)
 
     def decode(self, z: torch.Tensor, frames: Optional[int] = None,
-               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+               lengths: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, latent_tokens, latent_dim) -> (B, frames, nfeats) float32."""
         cfg = self.cfg
         t = frames if frames is not None else cfg.window
@@ -89,7 +94,7 @@ class MotionPrior(nn.Module):
             torch.zeros((z.shape[0], t, cfg.latent_dim), dtype=z.dtype, device=z.device)
         )
         mask = lengths_to_mask(lengths, t)
-        feats = self.final_layer(self.decoder(queries, z, mask))
+        feats = self.final_layer(self.decoder(queries, z, mask, generator))
         if mask is not None:
             feats = torch.where(mask[..., None], feats, torch.zeros_like(feats))
         return feats.to(torch.float32)

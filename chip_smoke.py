@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only-train-step --train-steps 12  # with 12 timed steps, not 4
     python3 chip_smoke.py --only-edit  # build, then checkpoint_load and edit_gesture alone
     python3 chip_smoke.py --only-prepare-data  # build, then prepare_data alone
+    python3 chip_smoke.py --only-train-gesture  # build, then the three LPDM phases alone
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -26,7 +27,11 @@ the kernels' launch counters that each went through its kernels:
     ``style_transfer`` through it (K1, K3);
   * ``prepare_data``: the frozen-AST stage-2 cache and the stage-1 quads
     (K1), then the ``edit_gesture`` and ``prepare_data`` CLIs at tiny widths
-    on the card against the CPU.
+    on the card against the CPU;
+  * stage-2 training: the ``train_gesture`` step at small widths against the
+    CPU plain path (K3 over freshly packed weights, prefetch), at the
+    flagship widths with the DDIM monitor every step (timed, traced), then
+    the ``train_gesture`` CLI with a checkpoint and a resume (K3).
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -973,6 +978,392 @@ def phase_cli_train():
           "last": second.stdout.strip().splitlines()[-1][:300]})
 
 
+# stage-2 (LPDM) training: the small-width step on the card against the CPU
+# plain path (float32, dropout off, the step's draws made on the CPU): the
+# loss per step and all gradients of step 1 together (relative L2)
+LPDM_LOSS_RTOL = 1e-3
+LPDM_GRAD_REL_L2 = 1e-3
+SMALL_PRIOR = {"latent_dim": 32, "ff_size": 64, "num_layers": 3, "num_heads": 2, "window": 30}
+LPDM_BATCH = 32  # configs/train_gesture.json
+
+
+def _lpdm_batch(b: int, t: int, cond: int, seed: int, device) -> dict:
+    """A stage-2 batch: axis-angle motion + trans, frozen-AST features, and the
+    MoSh betas of random actors among the 26 whose betas the repository has."""
+    import numpy as np
+
+    from amuse_tpu_torch.data.actors import ACTORS, _load_betas
+    from amuse_tpu_torch.data.cache import betas_for_actor_ids
+    from amuse_tpu_torch.train.gesture import batch_to_device
+
+    rng = np.random.default_rng(seed)
+    with_betas = [i - 1 for i, a in ACTORS.items() if a.name in _load_betas()]
+    return batch_to_device({"motion": 0.2 * rng.normal(size=(b, t, 168)),
+                            "con": rng.normal(size=(b, cond)), "emo": rng.normal(size=(b, cond)),
+                            "sty": rng.normal(size=(b, cond)),
+                            "betas": betas_for_actor_ids(rng.choice(with_betas, b))}, device)
+
+
+def _small_lpdm(device: str, lr: float = TRAIN_LR, dropout: float = 0.0):
+    """(state, step) of the small-width LPDM step: prior and denoiser
+    d 32, 30-frame windows, the 50-step monitor, and the vertex monitors on a
+    64-vertex rig of the SMPL-X tree, all on ``device``."""
+    import dataclasses
+
+    from amuse_tpu_torch.core import smplx
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.train import gesture as tg
+
+    prior_cfg = PriorConfig(**SMALL_PRIOR, dropout=dropout)
+    den_cfg = DenoiserConfig(**SMALL_DENOISER, dropout=dropout)
+    tcfg = dataclasses.replace(tg.GestureTrainConfig(), learning_rate=lr)
+    rig = smplx.make_test_model(num_vertices=64, num_joints=55, num_betas=300,
+                                parents=smplx.SMPLX_PARENTS).to(device)
+    state = tg.init_state(21, prior_cfg, den_cfg, tcfg, device)
+    return state, tg.make_train_step(prior_cfg, den_cfg, tcfg, rig)
+
+
+def _cpu_noise(b: int, seed: int, device):
+    """A step's draws made by a CPU generator (CUDA's and the CPU's draw
+    different numbers), on ``device``."""
+    import torch
+
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.train import gesture as tg
+
+    noise = tg.draw_step_noise(torch.Generator().manual_seed(seed), b,
+                               PriorConfig(**SMALL_PRIOR), make_schedule(), torch.device("cpu"))
+    return tg.StepNoise(*(x.to(device) for x in noise))
+
+
+def _monitor_gen_feature(prior, den, batch, x_t, steps: int = 50) -> float:
+    """The monitor's gen_feature by the plain loop over these weights."""
+    import torch
+
+    from amuse_tpu_torch.core.motion import featurize
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_reference
+    from amuse_tpu_torch.train.losses import smooth_l1
+
+    with torch.no_grad():
+        z = ddim_sample_reference(den.eval(), make_schedule(), batch["con"], batch["emo"],
+                                  batch["sty"], x_t, steps)
+        return smooth_l1(prior.eval().decode(z), featurize(batch["motion"])).item()
+
+
+def phase_train_gesture_small_vs_cpu() -> dict:
+    """The LPDM step at small widths (SMALL_PRIOR, SMALL_DENOISER, batch 4,
+    the 50-step monitor and the vertex monitors), three checks:
+
+      * two steps on the card against the CPU from the same weights, batch and
+        draws, dropout off: loss per step within LPDM_LOSS_RTOL, the
+        gradients of step 1 within LPDM_GRAD_REL_L2; one K3 launch per step
+        on the card, none on the CPU;
+      * K3 after AdamW steps: at lr 1e-2, the gen_feature a step logs equals
+        the plain loop over the weights that step started from (the updated
+        ones) within K3's error, and differs from the plain loop over the
+        weights of one step earlier by far more; ``ddim_sample_fused`` over
+        the updated denoiser against ``ddim_sample_reference`` (K3_TOL_SMALL);
+      * an epoch of 4 stochastic steps (dropout 0.1) with its batches from
+        ``prefetch_to_device`` bit-equal to the same epoch with batches
+        copied on the default stream: each step's logs and the parameters."""
+    import copy
+
+    import torch
+
+    from amuse_tpu_torch.data.prefetch import prefetch_to_device
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+    from amuse_tpu_torch.train.audio import step_generator
+
+    b = 4
+    runs = {}
+    for device in ("cpu", "cuda"):
+        state, step = _small_lpdm(device)
+        batch = _lpdm_batch(b, 30, 24, 3, torch.device(device))
+        _reset_counts()
+        losses, grads = [], None
+        for i in range(2):
+            losses.append(step(state, batch, stochastic=False,
+                               noise=_cpu_noise(b, 10 + i, device))["total"].item())
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for m in (state.prior, state.denoiser) for n, p in m.named_parameters()
+                         if p.grad is not None}
+        runs[device] = (losses, grads, _sampler_launches())
+    (l_cpu, g_cpu, k_cpu), (l_gpu, g_gpu, k_gpu) = runs["cpu"], runs["cuda"]
+    check(k_cpu == 0 and k_gpu == 2, f"small LPDM steps launched K3 {k_gpu} times on the card "
+                                     f"and {k_cpu} on the CPU; expected 2 and 0")
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(l_gpu, l_cpu))
+    grad_err = _grad_rel_l2(g_gpu, g_cpu)
+    check(g_gpu.keys() == g_cpu.keys() and loss_err <= LPDM_LOSS_RTOL
+          and grad_err <= LPDM_GRAD_REL_L2,
+          f"small LPDM step on the card vs CPU: loss {loss_err}, gradients {grad_err}")
+
+    # the monitor samples with the weights of the step it runs in
+    state, step = _small_lpdm("cuda", lr=1e-2)
+    batch = _lpdm_batch(b, 30, 24, 4, torch.device("cuda"))
+    before = (copy.deepcopy(state.prior), copy.deepcopy(state.denoiser))
+    step(state, batch, stochastic=False, noise=_cpu_noise(b, 20, "cuda"))
+    updated = (copy.deepcopy(state.prior), copy.deepcopy(state.denoiser))
+    noise = _cpu_noise(b, 21, "cuda")
+    logged = step(state, batch, stochastic=False, noise=noise)["gen_feature"].item()
+    fresh = _monitor_gen_feature(*updated, batch, noise.latents)
+    stale = _monitor_gen_feature(*before, batch, noise.latents)
+    check(abs(logged - fresh) * 10 < abs(logged - stale),
+          f"the monitor's gen_feature {logged} is not that of the updated weights ({fresh}) "
+          f"rather than the earlier ones ({stale})")
+    den = state.denoiser.eval()
+    out = dk.ddim_sample_fused(den, make_schedule(), batch["con"], batch["emo"], batch["sty"],
+                               50, initial_latents=noise.latents)
+    ref = dk.ddim_sample_reference(den, make_schedule(), batch["con"], batch["emo"],
+                                   batch["sty"], noise.latents, 50)
+    k3_err = max_err(out, ref)
+    check(k3_err <= K3_TOL_SMALL, f"K3 over the updated weights vs the plain loop: {k3_err}")
+
+    # prefetch: the copy on the side stream is waited for
+    def host_batches():
+        import numpy as np
+
+        for i in range(4):
+            cpu = _lpdm_batch(b, 30, 24, 30 + i, torch.device("cpu"))
+            yield {k: np.asarray(v) for k, v in cpu.items()}
+
+    epochs = {}
+    for name in ("prefetch", "default_stream"):
+        state, step = _small_lpdm("cuda", dropout=0.1)
+        feed = (prefetch_to_device(host_batches(), 2, "cuda") if name == "prefetch" else
+                ({k: torch.as_tensor(v).to("cuda") for k, v in hb.items()}
+                 for hb in host_batches()))
+        logs = [step(state, batch, step_generator(5, 0, i, "cuda")) for i, batch in
+                enumerate(feed)]
+        epochs[name] = ([{k: v.item() for k, v in lg.items()} for lg in logs],
+                        [p.detach().clone() for m in (state.prior, state.denoiser)
+                         for p in m.parameters()])
+    (la, pa), (lb, pb) = epochs["prefetch"], epochs["default_stream"]
+    check(len(la) == 4 and la == lb and all(torch.equal(x, y) for x, y in zip(pa, pb)),
+          "an epoch fed by prefetch_to_device differs from the same epoch fed on the "
+          "default stream")
+    row = {"phase": "train_gesture_small_vs_cpu", "loss_cpu": l_cpu, "loss_gpu": l_gpu,
+           "loss_rel_err": loss_err, "loss_tolerance": LPDM_LOSS_RTOL,
+           "grad_rel_l2": grad_err, "grad_tolerance": LPDM_GRAD_REL_L2,
+           "k3_launches_two_steps": k_gpu,
+           "gen_feature": {"logged": logged, "updated_weights": fresh, "earlier_weights": stale},
+           "k3_updated_weights_max_abs_err": k3_err, "k3_tolerance": K3_TOL_SMALL,
+           "prefetched_epoch_bit_equal": True}
+    emit(row)
+    return row
+
+
+def phase_train_gesture_step(steps: int = 4) -> dict:
+    """The LPDM step at the flagship widths of configs/train_gesture.json:
+    batch 32 windows of 300 frames, 6D (333 features), prior and denoiser d
+    128, ff 512, 9 layers, 4 heads, dropout 0.1, AdamW lr 1e-4, the 50-step
+    DDIM monitor every step (K3 at N = 32) and the three vertex forwards on
+    a synthetic rig of the SMPL-X sizes (10,475 vertices, the 55-joint tree,
+    300 betas; no SMPL-X file is in the repository). Random weights from a
+    seed. One warm-up step of each kind, then ``steps`` monitored and
+    ``steps`` unmonitored steps timed on CUDA events (device ms and host
+    enqueue ms each), K3 counted per step; then the monitored step's pieces
+    apart at its shapes: K3 launched alone at N = 32 over this step's
+    weights, ``ddim_sample_fused`` as the step calls it (weights and
+    conditioning packed afresh), its plain loop, the three vertex forwards;
+    last, one monitored step traced."""
+    import torch
+
+    from amuse_tpu_torch.core import smplx
+    from amuse_tpu_torch.core.motion import featurize
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+    from amuse_tpu_torch.train import gesture as tg
+    from amuse_tpu_torch.train.audio import step_generator
+
+    tcfg, prior_cfg, den_cfg = tg.GestureTrainConfig(), PriorConfig(), DenoiserConfig()
+    rig = smplx.make_test_model(num_vertices=10475, num_joints=55, num_betas=300,
+                                parents=smplx.SMPLX_PARENTS).to("cuda")
+    t0 = time.perf_counter()
+    state = tg.init_state(0, prior_cfg, den_cfg, tcfg, "cuda")
+    steps_fn = {"monitored": tg.make_train_step(prior_cfg, den_cfg, tcfg, rig, True),
+                "unmonitored": tg.make_train_step(prior_cfg, den_cfg, tcfg, rig, False)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batch = _lpdm_batch(LPDM_BATCH, prior_cfg.window, den_cfg.cond_dim, 1, torch.device("cuda"))
+    watched = {"prior.encoder.input_blocks.0.linear1.weight": state.prior,
+               "denoiser.encoder.output_blocks.3.self_attn.in_proj_weight": state.denoiser}
+    before = {n: m.get_parameter(n.split(".", 1)[1]).detach().clone() for n, m in watched.items()}
+    torch.cuda.reset_peak_memory_stats()
+    gen_i = iter(range(10**6))
+    for fn in steps_fn.values():  # warm-up
+        fn(state, batch, step_generator(0, 0, next(gen_i), "cuda"))
+    torch.cuda.synchronize()
+    timed = {}
+    for kind, fn in steps_fn.items():
+        _reset_counts()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        host_ms = []
+        events[0].record()
+        for i in range(steps):
+            h0 = time.perf_counter()
+            logs = fn(state, batch, step_generator(0, 0, next(gen_i), "cuda"))
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        timed[kind] = {"ms_per_step": sum(step_ms) / steps, "device_ms_each": step_ms,
+                       "host_ms_each": host_ms, "k3_launches_per_step": _sampler_launches() / steps,
+                       "logs": {k: v.item() for k, v in logs.items()}}
+    peak = torch.cuda.max_memory_allocated()
+    check(timed["monitored"]["k3_launches_per_step"] == 1
+          and timed["unmonitored"]["k3_launches_per_step"] == 0,
+          f"K3 launches per step: {timed['monitored']['k3_launches_per_step']} monitored, "
+          f"{timed['unmonitored']['k3_launches_per_step']} unmonitored; expected 1 and 0")
+    mon = timed["monitored"]["logs"]
+    check(all(math.isfinite(v) for v in mon.values()) and "gen_vtex_displacement" in mon,
+          f"monitored step logs not finite or incomplete: {mon}")
+    moved = {n: (m.get_parameter(n.split(".", 1)[1]).detach() - before[n]).abs().max().item()
+             for n, m in watched.items()}
+    check(all(v > 0 for v in moved.values()), f"parameters did not move: {moved}")
+
+    # the monitored step's pieces at its shapes, over the weights as they are
+    den, sched, cfg = state.denoiser.eval(), make_schedule(), den_cfg
+    con, emo, sty = batch["con"], batch["emo"], batch["sty"]
+    x_t = torch.randn((LPDM_BATCH, 1, cfg.latent_dim), generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    pack = dk.pack_for_cluster(dk.pack_denoiser(den), dk.cluster_for(cfg, LPDM_BATCH))
+    sched_cond = dk.schedule_conditioning(den, sched, tcfg.num_inference_steps)
+    cond = dk.condition_tokens(den, con, emo, sty)
+
+    def kernel():
+        return dk.launch_sampler(pack, sched_cond, cond, x_t, cfg)
+
+    def wrapper():  # as the step calls it: weights and conditioning packed afresh
+        return dk.ddim_sample_fused(den, sched, con, emo, sty, tcfg.num_inference_steps,
+                                    initial_latents=x_t)
+
+    def plain():
+        return dk.ddim_sample_reference(den, sched, con, emo, sty, x_t,
+                                        tcfg.num_inference_steps)
+
+    k3_err = max_err(kernel(), plain())
+    check(torch.equal(kernel(), wrapper()), "K3 launched alone differs from the step's call")
+    check(k3_err <= K3_TOL, f"K3 at N = {LPDM_BATCH} vs its plain loop: {k3_err} > {K3_TOL}")
+    flops = _sampler_flops(LPDM_BATCH, tcfg.num_inference_steps, 5, cfg.latent_dim, cfg.ff_size,
+                           cfg.num_layers)
+    nbytes = (sum(t.numel() * 4 for t in dk.pack_denoiser(den))
+              + 4.0 * (tcfg.num_inference_steps * (cfg.latent_dim + 4)
+                       + LPDM_BATCH * 5 * cfg.latent_dim))
+    k3 = {"windows": LPDM_BATCH, "cluster": pack.cluster, "max_abs_err": k3_err,
+          "tolerance": K3_TOL, "ms": cuda_ms(kernel, iters=10, warmup=2),
+          "wrapper_ms": cuda_ms(wrapper, iters=10, warmup=2),
+          "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+          "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+          "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes"}
+    soc = smplx.prepare_soc(rig)
+    m6 = featurize(batch["motion"])
+
+    def vertices():
+        return [smplx.soc_monitor_vertices(rig, soc, m6, batch["betas"]) for _ in range(3)]
+
+    n_frames, v = LPDM_BATCH * prior_cfg.window, rig.num_vertices
+    vert_flops = 3 * 2.0 * n_frames * (9 * 54 * 3 * v + 12 * 55 * v)  # the two products
+    vert = {"frames": n_frames, "vertices": v, "three_calls_ms": cuda_ms(vertices, iters=3,
+                                                                         warmup=1),
+            "products_bound_ms": vert_flops / PEAK_F32_FLOPS * 1e3,
+            "outputs_gib": 3 * 3 * n_frames * v * 4 / 2**30}
+    trace = trace_call(lambda: steps_fn["monitored"](state, batch, step_generator(
+        0, 0, next(gen_i), "cuda")), "train_gesture_step")
+    with_k3 = [r for r in trace["top"] if "ddim_sampler" in r["kernel"]]
+    row = {"phase": "train_gesture_step", "setup_s": setup_s, "batch": LPDM_BATCH,
+           "params": sum(p.numel() for m in (state.prior, state.denoiser)
+                         for p in m.parameters()),
+           "steps": steps, **timed, "peak_mem_gib": peak / 2**30, "param_moved": moved,
+           "k3_n32": k3, "vertex_monitors": vert,
+           "trace_monitored_step": {**trace, "k3_device_ms": sum(r["ms"] for r in with_k3)}}
+    emit(row)
+    return row
+
+
+def _write_smplx_npz(path: Path) -> None:
+    """A rig of 40 vertices on the 55-joint SMPL-X tree in the published npz
+    layout (posedirs (V, 3, P), ``weights``, ``kintree_table``)."""
+    import numpy as np
+
+    from amuse_tpu_torch.core import smplx
+
+    m = smplx.make_test_model(num_vertices=40, num_joints=55, num_betas=10,
+                              parents=smplx.SMPLX_PARENTS)
+    np.savez(path, v_template=m.v_template.numpy(), shapedirs=m.shapedirs.numpy(),
+             posedirs=m.posedirs.numpy().T.reshape(40, 3, -1),
+             J_regressor=m.j_regressor.numpy(), weights=m.lbs_weights.numpy(),
+             kintree_table=np.stack([m.parents, np.arange(55)]))
+
+
+def phase_cli_train_gesture(root: Path) -> dict:
+    """``--fn prepare_data`` then ``--fn train_gesture`` on the card at tiny
+    widths (TINY_CFG; 2 takes x 4 windows, batch 4, the 3-step monitor every
+    step, an SMPL-X npz of 40 vertices subsampled to 16): two epochs with a
+    checkpoint each; a run of one epoch resumed to two logs the unbroken
+    run's epoch-2 losses (rtol 1e-6); K3 launched once per step."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    for actor_id, name in ((2, "scott"), (9, "miranda")):
+        _write_take(root, actor_id, name, "0_9_9", 4, rng)
+    (root / "smplx").mkdir()
+    _write_smplx_npz(root / "smplx" / "SMPLX_NEUTRAL.npz")
+    log = OUT / "cli_train_gesture.log"
+
+    def cfg(work: str, epochs: int) -> str:
+        c = dict(TINY_CFG, out_dir=str(root / work / "runs"),
+                 gesture={**TINY_CFG["gesture"], "epochs": epochs, "batch_size": 4,
+                          "model_save_freq": 1, "vtex_subsample": 16},
+                 data={"data_root": str(root / "beat"), "mosh_root": str(root / "mosh"),
+                       "cache_dir": str(root / "cache"), "stage1_dataset": str(root / "s1.npz"),
+                       "smplx_model_dir": str(root / "smplx")})
+        (root / f"{work}.json").write_text(json.dumps(c))
+        return str(root / f"{work}.json")
+
+    def train(work: str, epochs: int, *extra) -> dict:
+        _run_cli(["--fn", "train_gesture", "--cfg", cfg(work, epochs), *extra], log, root)
+        run = sorted((root / work / "runs").iterdir())[-1]
+        rows = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+        return {"run": run, "rows": {r["step"]: r for r in rows}}
+
+    t0 = time.perf_counter()
+    _run_cli(["--fn", "prepare_data", "--cfg", cfg("prep", 1)], log, root)
+    _reset_counts()
+    full = train("full", 2)
+    k3_launches = _sampler_launches()
+    part = train("part", 1)
+    resumed = train("resumed", 2, "--set", f"resume={part['run'] / 'checkpoints'}")
+    seconds = time.perf_counter() - t0
+    ckpts = sorted(p.name for p in (full["run"] / "checkpoints").iterdir())
+    check(ckpts == ["step_00000001", "step_00000002"], f"train_gesture checkpoints: {ckpts}")
+    check(k3_launches == 4, f"2 epochs of 2 monitored steps launched K3 {k3_launches} times")
+    want, got = full["rows"].get(1, {}), resumed["rows"].get(1, {})
+    keys = [k for k in want if k.startswith("train_")]
+    check(sorted(resumed["rows"]) == [1] and keys and all(
+        math.isfinite(want[k]) and abs(got[k] - want[k]) <= 1e-6 * abs(want[k]) for k in keys),
+        f"resumed epoch 2 {got} differs from the unbroken run's {want}")
+    row = {"phase": "cli_train_gesture", "seconds": seconds, "k3_launches": k3_launches,
+           "epoch2": {k: want[k] for k in keys},
+           "resumed_max_rel_diff": max(abs(got[k] - want[k]) / abs(want[k]) for k in keys)}
+    emit(row)
+    return row
+
+
+def run_train_gesture() -> dict:
+    """The three LPDM phases, the CLI's in a temporary directory."""
+    rows = {"small": phase_train_gesture_small_vs_cpu(), "step": phase_train_gesture_step()}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["cli"] = phase_cli_train_gesture(Path(tmp))
+    return rows
+
+
 # edit and prepare_data paths: the flagship widths, random weights made
 # from a seed and written as a released AMUSE directory
 EDIT_WINDOWS = 6  # one 60 s take: K1 at (3 x 6, 12, 1214, 64)
@@ -1394,6 +1785,9 @@ def main(argv=None) -> int:
     parser.add_argument("--only-prepare-data", action="store_true",
                         help="the same for prepare_data's frozen-AST pass and stage-1 quads "
                              "at the flagship AST widths")
+    parser.add_argument("--only-train-gesture", action="store_true",
+                        help="the same for the three LPDM phases: small widths against the "
+                             "CPU, the flagship step, the train_gesture CLI")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -1421,7 +1815,8 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     phase_build()
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
-            or args.only_train_step or args.only_edit or args.only_prepare_data):
+            or args.only_train_step or args.only_edit or args.only_prepare_data
+            or args.only_train_gesture):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -1435,6 +1830,8 @@ def main(argv=None) -> int:
         if args.only_edit or args.only_prepare_data:
             both = args.only_edit and args.only_prepare_data
             run_edit_and_prepare("edit" if args.only_edit else "prepare", with_prepare=both)
+        if args.only_train_gesture:
+            run_train_gesture()
         return 0
     k1_cases = phase_attention()
     k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
@@ -1447,6 +1844,7 @@ def main(argv=None) -> int:
     train_launches = phase_train_step(args.train_steps)
     phase_cli_train()
     edit_rows = run_edit_and_prepare()
+    lpdm = run_train_gesture()
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/attention_fwd.cu",
@@ -1485,6 +1883,12 @@ def main(argv=None) -> int:
     edit = edit_rows["edit"]
     kernels[1]["launches_per_edit_variant"] = edit["launches"]["ddim_sampler"] / edit["variants"]
     kernels[1]["launches_emotion_control"] = edit["launches"]["ddim_sampler"]
+    step = lpdm["step"]
+    kernels[1]["launches_per_monitored_lpdm_step"] = step["monitored"]["k3_launches_per_step"]
+    kernels[1]["launches_per_unmonitored_lpdm_step"] = step["unmonitored"]["k3_launches_per_step"]
+    kernels[1]["lpdm_step_n32"] = {k: step["k3_n32"][k] for k in (
+        "windows", "cluster", "max_abs_err", "tolerance", "ms", "wrapper_ms", "plain_ms",
+        "bound_ms", "bound_by")}
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     (OUT / "kernels.json").write_text(json.dumps({"kernels": kernels, "nvidia_smi": smi,
                                                   "seconds": time.perf_counter() - t_start},

@@ -702,3 +702,140 @@ def test_stage2_cache_on_the_card_matches_cpu(edit_pipes, tmp_path):
                 np.testing.assert_allclose(a[i][f], b[i][f], atol=EDIT_FEAT_ATOL, rtol=1e-3)
             else:
                 np.testing.assert_array_equal(a[i][f], b[i][f])
+
+
+# ------------------------------------------------------- stage-2 (LPDM) training
+#
+# Small widths (prior and denoiser d 32, ff 64, 3 layers, 2 heads; 30-frame
+# windows; the 50-step monitor; vertex monitors on a 64-vertex rig of the
+# SMPL-X tree), float32, the step's draws made by a CPU generator.
+LPDM_LOSS_RTOL, LPDM_GRAD_REL_L2 = 1e-3, 1e-3
+
+
+def _lpdm(device, lr=1e-4, dropout=0.0):
+    import dataclasses
+
+    from amuse_tpu_torch.core import smplx
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.train import gesture as tg
+
+    prior_cfg = PriorConfig(latent_dim=32, ff_size=64, num_layers=3, num_heads=2, window=30,
+                            dropout=dropout)
+    den_cfg = DenoiserConfig(latent_dim=32, ff_size=64, num_layers=3, num_heads=2,
+                             cond_dim=24, dropout=dropout)
+    tcfg = dataclasses.replace(tg.GestureTrainConfig(), learning_rate=lr)
+    rig = smplx.make_test_model(num_vertices=64, num_joints=55, num_betas=300,
+                                parents=smplx.SMPLX_PARENTS).to(device)
+    return (tg.init_state(21, prior_cfg, den_cfg, tcfg, device),
+            tg.make_train_step(prior_cfg, den_cfg, tcfg, rig), prior_cfg)
+
+
+def _lpdm_batch(device, seed, b=4):
+    import numpy as np
+
+    from amuse_tpu_torch.train.gesture import batch_to_device
+
+    rng = np.random.default_rng(seed)
+    return batch_to_device({"motion": 0.2 * rng.normal(size=(b, 30, 168)),
+                            **{k: rng.normal(size=(b, 24)) for k in ("con", "emo", "sty")},
+                            "betas": 0.5 * rng.normal(size=(b, 300))}, device)
+
+
+def _lpdm_noise(prior_cfg, device, seed, b=4):
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.train import gesture as tg
+
+    noise = tg.draw_step_noise(torch.Generator().manual_seed(seed), b, prior_cfg,
+                               make_schedule(), torch.device("cpu"))
+    return tg.StepNoise(*(x.to(device) for x in noise))
+
+
+def test_lpdm_step_on_the_card_matches_cpu(cuda):
+    """Two steps (dropout off) on the card and on the CPU from the same
+    weights, batch and draws: loss per step within LPDM_LOSS_RTOL, the
+    gradients of step 1 within LPDM_GRAD_REL_L2 (relative L2, all together);
+    one K3 launch per step on the card."""
+    from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_fused
+
+    out = {}
+    for dev in ("cpu", cuda):
+        state, step, prior_cfg = _lpdm(dev)
+        batch = _lpdm_batch(dev, 3)
+        before = ddim_sample_fused.launches
+        losses, grads = [], None
+        for i in range(2):
+            losses.append(step(state, batch, stochastic=False,
+                               noise=_lpdm_noise(prior_cfg, dev, 10 + i))["total"].item())
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for m in (state.prior, state.denoiser) for n, p in m.named_parameters()
+                         if p.grad is not None}
+        out[str(dev)] = (losses, grads, ddim_sample_fused.launches - before)
+    (l_cpu, g_cpu, k_cpu), (l_gpu, g_gpu, k_gpu) = out["cpu"], out[str(cuda)]
+    assert (k_cpu, k_gpu) == (0, 2)
+    for a, c in zip(l_gpu, l_cpu):
+        assert abs(a - c) <= LPDM_LOSS_RTOL * abs(c)
+    assert g_gpu.keys() == g_cpu.keys()
+    num = sum(((g_gpu[n] - g) ** 2).sum() for n, g in g_cpu.items())
+    assert num.sqrt() <= LPDM_GRAD_REL_L2 * sum((g ** 2).sum() for g in g_cpu.values()).sqrt()
+
+
+def test_lpdm_monitor_samples_with_the_updated_weights(cuda):
+    """At lr 1e-2, a step's logged gen_feature is the plain loop's over the
+    weights that step started from (the first step's update applied), far
+    from the plain loop's over the weights before that update; K3 over the
+    updated denoiser within 2e-3 of its plain loop (50 steps, small widths)."""
+    import copy
+
+    from amuse_tpu_torch.core.motion import featurize
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+    from amuse_tpu_torch.train.losses import smooth_l1
+
+    state, step, prior_cfg = _lpdm(cuda, lr=1e-2)
+    batch, sched = _lpdm_batch(cuda, 4), make_schedule()
+    conds = (batch["con"], batch["emo"], batch["sty"])
+    before = (copy.deepcopy(state.prior), copy.deepcopy(state.denoiser))
+    step(state, batch, stochastic=False, noise=_lpdm_noise(prior_cfg, cuda, 20))
+    updated = (copy.deepcopy(state.prior), copy.deepcopy(state.denoiser))
+    noise = _lpdm_noise(prior_cfg, cuda, 21)
+    logged = step(state, batch, stochastic=False, noise=noise)["gen_feature"].item()
+
+    @torch.no_grad()
+    def gen_feature(prior, den):
+        z = dk.ddim_sample_reference(den.eval(), sched, *conds, noise.latents, 50)
+        return smooth_l1(prior.eval().decode(z), featurize(batch["motion"])).item()
+
+    fresh, stale = gen_feature(*updated), gen_feature(*before)
+    assert abs(logged - fresh) * 10 < abs(logged - stale), (logged, fresh, stale)
+    den = state.denoiser.eval()
+    out = dk.ddim_sample_fused(den, sched, *conds, 50, initial_latents=noise.latents)
+    ref = dk.ddim_sample_reference(den, sched, *conds, noise.latents, 50)
+    torch.testing.assert_close(out, ref, atol=2e-3, rtol=0)
+
+
+def test_lpdm_prefetched_epoch_is_bit_equal(cuda):
+    """Four stochastic steps (dropout 0.1) fed by prefetch_to_device equal,
+    bit for bit, the same steps fed by copies on the default stream: the
+    consumer's stream waits for the side stream's copy."""
+    from amuse_tpu_torch.data.prefetch import prefetch_to_device
+    from amuse_tpu_torch.train.audio import step_generator
+
+    def host_batches():
+        for i in range(4):
+            yield {k: v.cpu().numpy() for k, v in _lpdm_batch("cpu", 30 + i).items()}
+
+    runs = {}
+    for name in ("prefetch", "default_stream"):
+        state, step, _ = _lpdm(cuda, dropout=0.1)
+        feed = (prefetch_to_device(host_batches(), 2, cuda) if name == "prefetch" else
+                ({k: torch.as_tensor(v).to(cuda) for k, v in hb.items()}
+                 for hb in host_batches()))
+        logs = [{k: v.item() for k, v in step(state, b, step_generator(5, 0, i, cuda)).items()}
+                for i, b in enumerate(feed)]
+        runs[name] = (logs, [p.detach().clone() for m in (state.prior, state.denoiser)
+                             for p in m.parameters()])
+    (la, pa), (lb, pb) = runs["prefetch"], runs["default_stream"]
+    assert len(la) == 4 and la == lb
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb))
