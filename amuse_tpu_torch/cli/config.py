@@ -84,8 +84,8 @@ class GestureStageConfig:
     train_upper_body: bool = False
     vtex_displacement: bool = True
     # vertex subset of the displacement monitors (0 = full mesh), the DDIM
-    # monitor's period in steps, and the JAX package's native ABIN loader
-    # (not ported: the port refuses True, ROADMAP item 23)
+    # monitor's period in steps, and the C++ ABIN batch loader
+    # (native/loader.py) in place of the Python cache reader
     vtex_subsample: int = 0
     monitor_every: int = 1
     native_loader: bool = False
@@ -138,7 +138,7 @@ class VizConfig:
 @dataclass(frozen=True)
 class EmbedderTrainConfig:
     """--fn train_embedder: the external FGD feature extractor (an AE over
-    ground-truth motion windows only - see amuse_tpu/eval/embedder.py)."""
+    ground-truth motion windows only - see eval/embedder.py)."""
 
     epochs: int = 50
     learning_rate: float = 1e-3

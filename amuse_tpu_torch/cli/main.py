@@ -1,7 +1,8 @@
 """CLI of the PyTorch/CUDA port.
 
     python -m amuse_tpu_torch.cli.main
-        --fn {infer_gesture,edit_gesture,prepare_data,train_audio,train_gesture}
+        --fn {infer_gesture,edit_gesture,prepare_data,train_audio,train_gesture,
+              eval_gesture,train_embedder}
         [--cfg tiny.json] [--set key=value ...] [--wav-dir DIR] [--device cuda|cpu]
 
 ``infer_gesture`` turns every WAV under ``--wav-dir`` into SMPL-X npz files,
@@ -29,11 +30,24 @@ the card) every ``gesture.monitor_every`` steps and the SMPL-X vertex
 monitors when ``data.smplx_model_dir/SMPLX_NEUTRAL.npz`` exists; it writes
 ``metrics.jsonl`` and a checkpoint every ``gesture.model_save_freq`` epochs,
 which ``AMUSE_TPU_CKPT`` loads into ``infer_gesture``/``edit_gesture``.
+With ``gesture.native_loader`` its batches come from the C++ ABIN loader
+(``native/loader.py``) over ``<cache_dir>/train.abin``, built from the
+cache when missing or older than its manifest.
+
+``eval_gesture`` scores the pipeline on the window cache (FGD in the
+prior's latent space and in the external embedder's, diversity, APE/AVE
+and beat alignment in SMPL-X position space when
+``data.smplx_model_dir/SMPLX_NEUTRAL.npz`` exists, else in rotation space,
+R-precision), one K3 launch per batch, and writes ``eval_results.json``
+unless ``debug``. ``train_embedder`` trains that external embedder on the
+cache's ground-truth windows and writes ``embedder.npz`` (the JAX
+package's format), which ``data.embedder_path`` selects.
 
 Weights come from ``AMUSE_TPU_CKPT`` (and ``AMUSE_TPU_AST_CKPT``), read by
 ``utils/checkpoint_io.py``; with neither set they are random, seeded by
 ``cfg.seed``. The device defaults to ``cuda`` and the run fails without a
-GPU. Every other task is not ported yet.
+GPU. The other tasks (``bvh2smplx_``, ``render_gt``, ``render_baselines``,
+``blender_setup``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -360,10 +374,6 @@ def task_train_gesture(cfg, device: torch.device):
     from amuse_tpu_torch.utils.logging import RunLogger
 
     g = cfg.gesture
-    if g.native_loader:
-        raise NotImplementedError(
-            "gesture.native_loader (the JAX package's C++ ABIN loader) is not ported "
-            "(ROADMAP item 23); train with native_loader=false")
     run_dir = _setup(cfg)
     logger = RunLogger(None if cfg.debug else run_dir)
     tcfg = tg.GestureTrainConfig(
@@ -402,10 +412,26 @@ def task_train_gesture(cfg, device: torch.device):
         state, start_epoch = restore_train_state(cfg.resume, state, "LPDM-T")
     ckpt = None if cfg.debug else CheckpointManager(run_dir / "checkpoints")
 
+    native = None
+    if g.native_loader:  # a failed build raises; there is no fallback loader
+        from amuse_tpu_torch.native import loader as native_mod
+
+        abin = Path(cfg.data.cache_dir) / "train.abin"
+        manifest = Path(cfg.data.cache_dir) / "manifest.json"
+        # a rebuilt or merged cache invalidates the file derived from it
+        if not abin.exists() or abin.stat().st_mtime < manifest.stat().st_mtime:
+            native_mod.cache_to_abin(cfg.data.cache_dir, abin,
+                                     fields=("motion", "actor_id", "con", "emo", "sty"))
+        native = native_mod.NativeWindowLoader(abin)
+        print(f"[LPDM-T] native ABIN loader: {len(native)} windows")
+
     def host_batches(epoch):
         # epoch-keyed shuffle: a resumed run sees the batch order of an unbroken one
-        rng = np.random.default_rng([cfg.seed, epoch])
-        for b in data.batches(tcfg.batch_size, rng):
+        if native is not None:
+            batches = native.epoch(tcfg.batch_size, seed=cfg.seed * 100_003 + epoch)
+        else:
+            batches = data.batches(tcfg.batch_size, np.random.default_rng([cfg.seed, epoch]))
+        for b in batches:
             yield {"motion": b["motion"], "con": b["con"], "emo": b["emo"], "sty": b["sty"],
                    "betas": betas_for_actor_ids(b["actor_id"])}
 
@@ -421,6 +447,105 @@ def task_train_gesture(cfg, device: torch.device):
         if ckpt and (epoch + 1) % tcfg.checkpoint_every == 0:
             # full state: parameters, AdamW moments, step
             ckpt.save(epoch + 1, state.state_dict(), metrics)
+
+
+def task_eval_gesture(cfg, device: torch.device):
+    """Quantitative eval over the window cache: FGD, diversity, APE/AVE, beat
+    alignment and R-precision, the metrics the reference published only in
+    its paper."""
+    import json
+
+    from amuse_tpu_torch.core import smplx as smplx_mod
+    from amuse_tpu_torch.data.cache import WindowCache
+    from amuse_tpu_torch.eval import embedder as emb
+    from amuse_tpu_torch.eval.runner import evaluate_cache
+
+    run_dir = _setup(cfg)
+    # position-space APE/AVE/beat alignment through the SMPL-X FK when the
+    # body model exists, labelled rotation space otherwise; checked before
+    # anything is built, so that strict runs fail fast
+    smplx_path = Path(cfg.data.smplx_model_dir) / "SMPLX_NEUTRAL.npz"
+    smplx_model = smplx_mod.load_model(smplx_path) if smplx_path.exists() else None
+    if smplx_model is None:
+        msg = (
+            f"[eval] SMPL-X body model NOT loaded (looked for {smplx_path}).\n"
+            "[eval] APE/AVE/beat-align will run in ROTATION space - these "
+            "numbers are NOT comparable to position-space (paper) metrics.\n"
+            "[eval] To fix: download SMPLX_NEUTRAL.npz from smpl-x.is.tue.mpg.de "
+            f"(licensed, not vendorable) into {cfg.data.smplx_model_dir}/, or "
+            "set data.smplx_model_dir. The report will be labelled "
+            'metric_space: "rotation".'
+        )
+        if cfg.test.strict_position_space:
+            raise SystemExit(msg + "\n[eval] test.strict_position_space=true: refusing to "
+                             "produce rotation-space numbers.")
+        print(msg)
+    else:
+        print(f"[eval] SMPL-X body model loaded from {smplx_path}; "
+              "APE/AVE/beat-align in position space (FK joints)")
+        smplx_model = smplx_model.to(device)
+    emb_path = Path(cfg.data.embedder_path) if cfg.data.embedder_path else emb.DEFAULT_WEIGHTS
+    embedder = None
+    if emb_path.exists():
+        embedder = emb.load(emb_path)
+        print(f"[eval] external FGD embedder: {emb_path} ({embedder[2]})")
+    elif cfg.data.embedder_path:
+        # configured but absent: a config error, not a soft skip
+        raise SystemExit(
+            f"[eval] data.embedder_path={cfg.data.embedder_path} does not "
+            "exist (train one with --fn train_embedder, or unset the knob "
+            "to fall back to the bundled synthetic-regime weights)")
+    else:
+        print(f"[eval] no external embedder at {emb_path}; fgd_embedder "
+              "omitted (train one with --fn train_embedder)")
+    pipe = _make_pipeline(cfg, device)
+    cache = WindowCache(Path(cfg.data.cache_dir))
+    results = evaluate_cache(pipe, cache, batch_size=min(cfg.gesture.batch_size, len(cache)),
+                             seed=cfg.seed, smplx_model=smplx_model, embedder=embedder)
+    print("[eval]", json.dumps(results, indent=1))
+    if not cfg.debug:
+        (run_dir / "eval_results.json").write_text(json.dumps(results, indent=1))
+
+
+def task_train_embedder(cfg, device: torch.device):
+    """Train the external FGD feature extractor on ground-truth windows only
+    (never the generative model); writes ``<out_dir>/<ts>/embedder.npz``
+    with its provenance, for ``data.embedder_path``."""
+    import numpy as np
+
+    from amuse_tpu_torch.core import motion as motion_mod
+    from amuse_tpu_torch.data.cache import WindowCache
+    from amuse_tpu_torch.eval import embedder as emb
+
+    run_dir = _setup(cfg)
+    cache = WindowCache(Path(cfg.data.cache_dir))
+    if len(cache) == 0:
+        raise SystemExit("[embedder] empty window cache - run prepare_data first")
+    e = cfg.embedder
+    ecfg = emb.EmbedderConfig(in_dim=motion_mod.FEATS_6D, window=cfg.data.window_frames,
+                              channels=tuple(e.channels), latent_dim=e.latent_dim)
+    model = emb.make_model(emb.init_params(cfg.seed, ecfg), ecfg, device)
+    step, _ = emb.make_train_step(model, e.learning_rate)
+    bsz = max(1, min(e.batch_size, len(cache)))
+    n_batches = len(cache) // bsz
+    order = np.arange(n_batches * bsz)
+    rng = np.random.default_rng(cfg.seed)
+    for epoch in range(e.epochs):
+        t0 = time.time()
+        rng.shuffle(order)
+        tot = torch.zeros((), device=device)
+        for b in range(n_batches):
+            idx = order[b * bsz:(b + 1) * bsz]
+            motion = torch.as_tensor(np.stack([cache[int(i)]["motion"] for i in idx]))
+            tot += step(motion_mod.axis_angle_to_feats6d(motion.to(device)))
+        if epoch % 10 == 0 or epoch == e.epochs - 1:
+            print(f"[embedder] epoch {epoch + 1}/{e.epochs} "
+                  f"({time.time() - t0:.1f}s): recon={tot.item() / max(n_batches, 1):.6f}")
+    provenance = (f"trained by --fn train_embedder on cache={cfg.data.cache_dir} "
+                  f"({len(cache)} windows), {e.epochs} epochs, seed {cfg.seed}")
+    out = run_dir / "embedder.npz"
+    emb.save(out, emb.params_of(model), ecfg, provenance)
+    print(f"[embedder] saved -> {out}")
 
 
 def task_infer_gesture(cfg, wav_dir: str = "viz_dump/test/speech", device: str = "cuda"):
@@ -471,8 +596,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.fn not in TASK_NAMES:
         p.error(f"unknown --fn {args.fn!r}; tasks: {', '.join(TASK_NAMES)}")
-    ported = {"edit_gesture": task_edit_gesture, "infer_gesture": task_infer_gesture,
-              "prepare_data": task_prepare_data, "train_audio": task_train_audio,
+    ported = {"edit_gesture": task_edit_gesture, "eval_gesture": task_eval_gesture,
+              "infer_gesture": task_infer_gesture, "prepare_data": task_prepare_data,
+              "train_audio": task_train_audio, "train_embedder": task_train_embedder,
               "train_gesture": task_train_gesture}
     if args.fn not in ported:
         raise SystemExit(f"--fn {args.fn}: not yet ported to amuse_tpu_torch "

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only-edit  # build, then checkpoint_load and edit_gesture alone
     python3 chip_smoke.py --only-prepare-data  # build, then prepare_data alone
     python3 chip_smoke.py --only-train-gesture  # build, then the three LPDM phases alone
+    python3 chip_smoke.py --only-eval  # build, then eval_gesture, train_embedder, native loader
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -31,7 +32,11 @@ the kernels' launch counters that each went through its kernels:
   * stage-2 training: the ``train_gesture`` step at small widths against the
     CPU plain path (K3 over freshly packed weights, prefetch), at the
     flagship widths with the DDIM monitor every step (timed, traced), then
-    the ``train_gesture`` CLI with a checkpoint and a resume (K3).
+    the ``train_gesture`` CLI with a checkpoint and a resume (K3);
+  * evaluation: ``evaluate_cache`` over 100 windows at the flagship widths
+    (K3 once per batch of 32, the tail of 4 included) against its small-width
+    run on the CPU; the external embedder's train step; the native ABIN
+    loader through the pinned prefetch, and ``train_gesture`` fed by it.
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -204,9 +209,11 @@ def phase_attention(rng_seed: int = 0) -> dict:
     the relative L2 error of the output, the row log-sum-exp against
     torch.logsumexp, and the two instantiations' outputs bit for bit. At the
     AST shapes, N = 1, 4 (the train step's too) and 6 windows (one take of
-    the edit and prepare_data paths), it is timed with and without the row
-    log-sum-exp beside SDPA called both ways, with its achieved TFLOP/s and
-    its share of the bound. -> {shape: case} of the AST shapes."""
+    the edit and prepare_data paths), and at batch 4 (the shape of the
+    benchmark folder's kernel variants V1, V3, V5), it is timed with and
+    without the row log-sum-exp beside SDPA called both ways, with its
+    achieved TFLOP/s and its share of the bound. -> {shape: case} of the
+    AST shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -218,6 +225,7 @@ def phase_attention(rng_seed: int = 0) -> dict:
                                    (torch.float32, 2, 2, 70, 64, K1_TOL_F32),
                                    (torch.bfloat16, 1, 2, 70, 32, K1_TOL),
                                    (torch.bfloat16, 3, 12, 1214, 64, K1_TOL_AST),
+                                   (torch.bfloat16, 4, 12, 1214, 64, K1_TOL_AST),
                                    (torch.bfloat16, 12, 12, 1214, 64, K1_TOL_AST),
                                    (torch.bfloat16, 18, 12, 1214, 64, K1_TOL_AST)):
         name = str(dtype).replace("torch.", "")
@@ -612,9 +620,10 @@ def phase_attention_k2(rng_seed: int = 0) -> dict:
     """K2 through mha_train's backward, on strided views of a fused qkv
     tensor (as vit_block feeds it), against mha_bwd_reference and against
     autograd through mha_reference: float32 at ragged S = 70 (D 32 and 64),
-    bf16 at the stage-1 shape (3 encoders x 4 fbanks, 12 heads, 1214, 64),
-    where two launches must agree bit for bit and the call is timed beside
-    the SDPA backward, whole and pass by pass (``passes_ms``)."""
+    bf16 at the shape of the benchmark folder's variants V2, V4 (4, 12, 1214,
+    64) and at the stage-1 shape (3 encoders x 4 fbanks, 12 heads, 1214,
+    64), where two launches must agree bit for bit and the call is timed
+    beside the SDPA backward, whole and pass by pass (``passes_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -624,6 +633,7 @@ def phase_attention_k2(rng_seed: int = 0) -> dict:
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
     cases = []
     for dtype, b, h, s, d in ((torch.float32, 1, 2, 70, 32), (torch.float32, 2, 2, 70, 64),
+                              (torch.bfloat16, 4, 12, 1214, 64),
                               (torch.bfloat16, 12, 12, 1214, 64)):
         name = str(dtype).replace("torch.", "")
         qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(dtype)
@@ -1763,6 +1773,459 @@ def run_edit_and_prepare(only: str | None = None, with_prepare: bool = False) ->
     return rows
 
 
+# evaluation, the external embedder and the native ABIN loader
+EVAL_WINDOWS = 100  # batch 32: K3 at N = 32, 32, 32 and the tail 4
+EVAL_BATCH = 32
+EVAL_RTOL = 1e-3  # the small-width report, card against CPU, every numeric key
+EMB_LOSS_RTOL = 1e-5  # the small-width embedder step, card against CPU
+EMB_GRAD_REL_L2 = 1e-5
+EMB_BATCH = 32
+NATIVE_WINDOWS = 512
+LPDM_FIELDS = ("motion", "actor_id", "con", "emo", "sty")
+
+
+def _burst_audio(rng, samples: int, offset: int):
+    """Silence with loud 40 ms bursts every 0.33 s: onsets far above the
+    peak picker's threshold, so the card's and the CPU's fbanks find the
+    same beats."""
+    import numpy as np
+
+    audio = np.zeros(samples, np.float32)
+    for s in range(500 + offset, samples - 640, 5300):
+        audio[s:s + 640] = 0.3 * rng.normal(size=640)
+    return audio
+
+
+def _write_cache(root: Path, n: int, cond_dim: int, seed: int, audio: bool = True) -> Path:
+    """A stage-2 window cache of ``n`` windows in the cache layout (shards
+    of ``SHARD_WINDOWS``, a manifest): random axis-angle motion and
+    features, actors whose betas the repository has, and 10 s of burst
+    audio per window (``audio``) or an
+    unwritten (sparse) zero audio column, which ``batches`` never reads."""
+    import numpy as np
+
+    from amuse_tpu_torch.data.actors import ACTORS, _load_betas
+    from amuse_tpu_torch.data.cache import FIELDS, SHARD_WINDOWS
+
+    rng = np.random.default_rng(seed)
+    with_betas = np.array([i - 1 for i, a in ACTORS.items() if a.name in _load_betas()])
+    shards = []
+    for s, start in enumerate(range(0, n, SHARD_WINDOWS)):
+        m = min(SHARD_WINDOWS, n - start)
+        d = root / f"shard_{s:05d}"
+        d.mkdir(parents=True)
+        np.save(d / "motion.npy", (0.2 * rng.normal(size=(m, 300, 168))).astype(np.float32))
+        np.save(d / "actor_id.npy",
+                with_betas[(start + np.arange(m)) % with_betas.size].astype(np.int32))
+        np.save(d / "emo_label.npy", np.zeros(m, np.int32))
+        for k in ("con", "emo", "sty"):
+            np.save(d / f"{k}.npy", rng.normal(size=(m, cond_dim)).astype(np.float32))
+        col = np.lib.format.open_memmap(d / "audio.npy", mode="w+", dtype=np.float32,
+                                        shape=(m, 160000))
+        if audio:
+            for i in range(m):
+                col[i] = _burst_audio(rng, 160000, 37 * (start + i) % 5000)
+        col.flush()
+        del col
+        shards.append(d.name)
+    (root / "manifest.json").write_text(json.dumps(
+        {"num_windows": n, "shards": shards, "fields": list(FIELDS), "ast_source": "chip_smoke"}))
+    return root
+
+
+def _eval_small_vs_cpu(root: Path) -> dict:
+    """The eval at small widths (prior and denoiser d 32, 10 DDIM steps), 10
+    windows at batch 4 (K3 at N = 4, 4, 2), in position space on a 40-vertex
+    rig of the SMPL-X tree, with the committed embedder, on the card and on
+    the CPU: every numeric key within EVAL_RTOL, the labels and R-precision
+    counts equal, the audio beats of the card's fbank equal to the CPU's."""
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.core import smplx
+    from amuse_tpu_torch.data.cache import WindowCache
+    from amuse_tpu_torch.eval import embedder as emb
+    from amuse_tpu_torch.eval import runner
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+
+    cfgs = (PriorConfig(**{k: v for k, v in SMALL_PRIOR.items() if k != "window"}),
+            DenoiserConfig(**SMALL_DENOISER), ASTConfig(**SMALL_AST))
+    params = init_random_params(7, *cfgs)
+    cache = WindowCache(_write_cache(root, 10, SMALL_DENOISER["cond_dim"], seed=5))
+    rig = smplx.make_test_model(num_vertices=40, num_joints=55, num_betas=10,
+                                parents=smplx.SMPLX_PARENTS)
+    reports, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        pipe = GesturePipeline(params, *cfgs, dtype=torch.float32, num_inference_steps=10,
+                               device=dev)
+        before = _sampler_launches()
+        reports[dev] = runner.evaluate_cache(pipe, cache, batch_size=4, seed=3,
+                                             smplx_model=rig.to(dev),
+                                             embedder=emb.load(emb.DEFAULT_WEIGHTS))
+        launches[dev] = _sampler_launches() - before
+    cpu, gpu = reports["cpu"], reports["cuda"]
+    check(launches == {"cpu": 0, "cuda": 3}, f"small eval K3 launches {launches}")
+    check(gpu.keys() == cpu.keys() and gpu["metric_space"] == "position",
+          f"small eval report keys differ: {sorted(gpu)} vs {sorted(cpu)}")
+    rel = {}
+    for k, v in cpu.items():
+        if isinstance(v, str) or k.startswith("r_precision_top"):
+            check(gpu[k] == v, f"small eval {k}: card {gpu[k]!r}, CPU {v!r}")
+        else:
+            rel[k] = abs(gpu[k] - v) / max(abs(v), 1e-3)
+    check(all(r <= EVAL_RTOL for r in rel.values()),
+          f"small eval on the card vs the CPU: {rel} > {EVAL_RTOL}")
+    waves = np.stack([cache[i]["audio"] for i in range(len(cache))])
+    beats = [runner.audio_beats(waves, d) for d in ("cuda", "cpu")]
+    counts = [int(b.size) for b in beats[0]]
+    check(all(np.array_equal(a, b) for a, b in zip(*beats)) and min(counts) >= 20,
+          f"audio beats on the card differ from the CPU's (counts {counts})")
+    return {"max_rel_diff": max(rel.values()), "worst_key": max(rel, key=rel.get),
+            "tolerance": EVAL_RTOL, "k3_launches": launches["cuda"], "beats_per_window": counts,
+            "report_cuda": {k: v for k, v in gpu.items() if not isinstance(v, str)}}
+
+
+def phase_eval_gesture(root: Path) -> dict:
+    """``evaluate_cache`` at the flagship widths (random weights; denoiser d
+    128 x 9 layers, the VAE over 300 frames, 50 DDIM steps) over a cache of
+    EVAL_WINDOWS windows with 10 s of audio each, at batch 32, in position
+    space on a synthetic rig of the SMPL-X sizes (10,475 vertices, the
+    55-joint tree, 300 betas), with the committed embedder. A warm-up over 36
+    windows, then the counted and timed run: K3 launched 4 times (N = 32,
+    32, 32, 4), no K1 or K2; a second timed run gives the same report. Then
+    the pieces at their shapes: K3 at the tail
+    N = 4 alone, as the pipeline calls it, and its plain loop; FK, the
+    embedder and the fbank of the beat detector (device ms), the peak
+    picking (host ms); one batch traced; the small-width gate."""
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.audio import fbank
+    from amuse_tpu_torch.core import motion as motion_mod
+    from amuse_tpu_torch.core import smplx
+    from amuse_tpu_torch.data.cache import WindowCache, betas_for_actor_ids
+    from amuse_tpu_torch.eval import embedder as emb
+    from amuse_tpu_torch.eval import metrics as M
+    from amuse_tpu_torch.eval import runner
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    t0 = time.perf_counter()
+    pipe = GesturePipeline(init_random_params(0), device="cuda")
+    cache = WindowCache(_write_cache(root / "cache", EVAL_WINDOWS,
+                                     pipe.denoiser_cfg.cond_dim, seed=4))
+    rig = smplx.make_test_model(num_vertices=10475, num_joints=55, num_betas=300,
+                                parents=smplx.SMPLX_PARENTS).to("cuda")
+    embedder = emb.load(emb.DEFAULT_WEIGHTS)
+    setup_s = time.perf_counter() - t0
+
+    def run(n: int) -> dict:
+        return runner.evaluate_cache(pipe, cache, max_windows=n, batch_size=EVAL_BATCH, seed=0,
+                                     smplx_model=rig, embedder=embedder)
+
+    run(36)  # warm-up: both batch shapes
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    report = run(EVAL_WINDOWS)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    k3_launches = _sampler_launches()
+    counts = _launch_counts()
+    t0 = time.perf_counter()
+    check(run(EVAL_WINDOWS) == report, "a second eval of the same cache differs")
+    torch.cuda.synchronize()
+    eval_again_s = time.perf_counter() - t0
+    check(k3_launches == -(-EVAL_WINDOWS // EVAL_BATCH) and counts == {
+        "attention_fwd": 0, "attention_bwd": 0},
+        f"the eval launched K3 {k3_launches} times and {counts}, expected "
+        f"{-(-EVAL_WINDOWS // EVAL_BATCH)} and no attention")
+    numbers = {k: v for k, v in report.items() if not isinstance(v, str)}
+    check(report["num_windows"] == EVAL_WINDOWS and report["metric_space"] == "position"
+          and "fgd_embedder" in report and "beat_align_gen" in report
+          and all(math.isfinite(v) for v in numbers.values()),
+          f"eval report incomplete or not finite: {report}")
+
+    # K3 at the tail N = 4, over the pipeline's packed weights
+    den, cfg, tail = pipe.denoiser, pipe.denoiser_cfg, EVAL_WINDOWS % EVAL_BATCH
+    start = EVAL_WINDOWS - tail
+    con, emo, sty = (torch.as_tensor(np.stack([cache[i][k] for i in range(start, EVAL_WINDOWS)]))
+                     .cuda() for k in ("con", "emo", "sty"))
+    x0 = runner.batch_latents(0, start, (tail, 1, cfg.latent_dim)).cuda()
+    pack = pipe.sampler_weights.for_cluster(dk.cluster_for(cfg, tail))
+    cond = dk.condition_tokens(den, con, emo, sty)
+    steps = pipe.num_inference_steps
+
+    def kernel():
+        return dk.launch_sampler(pack, pipe.sampler_conditioning, cond, x0, cfg)
+
+    def plain():
+        return dk.ddim_sample_reference(den, pipe.schedule, con, emo, sty, x0, steps)
+
+    out = kernel()
+    k3_err = max_err(out, plain())
+    check(torch.equal(pipe.generate_latents(con, emo, sty, initial_latents=x0), out),
+          "K3 launched alone differs from the eval's call at the tail")
+    check(k3_err <= K3_TOL, f"K3 at the tail N = {tail} vs its plain loop: {k3_err} > {K3_TOL}")
+    flops = _sampler_flops(tail, steps, 5, cfg.latent_dim, cfg.ff_size, cfg.num_layers)
+    nbytes = (sum(t.numel() * 4 for t in dk.pack_denoiser(den))
+              + 4.0 * (steps * (cfg.latent_dim + 4) + tail * 5 * cfg.latent_dim))
+    k3 = {"windows": tail, "cluster": pack.cluster, "max_abs_err": k3_err, "tolerance": K3_TOL,
+          "ms": cuda_ms(kernel, iters=10, warmup=2),
+          "wrapper_ms": cuda_ms(lambda: pipe.generate_latents(con, emo, sty, initial_latents=x0),
+                                iters=10, warmup=2),
+          "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+          "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+          "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes"}
+
+    # the other device pieces of one batch of 32, at their shapes
+    items = [cache[i] for i in range(EVAL_BATCH)]
+    motion = torch.as_tensor(np.stack([it["motion"] for it in items])).cuda()
+    m6 = motion_mod.axis_angle_to_feats6d(motion)
+    aa, tr = motion_mod.feats6d_to_axis_angle(m6)
+    betas = torch.from_numpy(betas_for_actor_ids(np.stack([it["actor_id"] for it in items])))
+    betas = betas.cuda()
+    fk, model = runner.make_fk(rig), emb.make_model(embedder[0], embedder[1], "cuda").eval()
+    waves = torch.as_tensor(np.stack([it["audio"] for it in items])).cuda()
+    mel = fbank.fbank(waves).cpu().numpy()
+    t0 = time.perf_counter()
+    for m in mel:
+        M.audio_beats_from_mel(m)
+    peak_ms = (time.perf_counter() - t0) * 1e3
+    aa_np = aa.cpu().numpy()
+    t0 = time.perf_counter()
+    for j in aa_np:
+        M.motion_beats_from_joints(j)
+    motion_beats_ms = (time.perf_counter() - t0) * 1e3
+    pieces = {"fk_ms": cuda_ms(lambda: fk(aa, tr, betas), iters=5, warmup=1),
+              "embedder_ms": cuda_ms(lambda: emb.embed(model, m6), iters=10, warmup=2),
+              "fbank_ms": cuda_ms(lambda: fbank.fbank(waves), iters=10, warmup=2),
+              "peak_picking_host_ms": peak_ms, "motion_beats_host_ms": motion_beats_ms,
+              "fk_frames": EVAL_BATCH * 300, "windows": EVAL_BATCH}
+    trace = trace_call(lambda: run(EVAL_BATCH), "eval_batch")
+    k3_n32_ms = sum(r["ms"] for r in trace["top"] if "ddim_sampler" in r["kernel"])
+    # K3's device time in the timed run: three launches at N = 32 (as traced)
+    # and the tail's, over the run's wall time
+    k3_eval_ms = (EVAL_WINDOWS // EVAL_BATCH) * k3_n32_ms + k3["ms"]
+    small = _eval_small_vs_cpu(root / "small")
+    row = {"phase": "eval_gesture", "windows": EVAL_WINDOWS, "batch": EVAL_BATCH,
+           "setup_s": setup_s, "eval_s": eval_s, "ms_per_window": eval_s * 1e3 / EVAL_WINDOWS,
+           "eval_again_s": eval_again_s,
+           "k3_launches": k3_launches, "launches": counts, "report": numbers,
+           "k3_tail": k3, "k3_eval_ms": k3_eval_ms, "k3_share": k3_eval_ms / (eval_s * 1e3),
+           "pieces": pieces, "trace_one_batch": {**trace, "k3_device_ms": k3_n32_ms},
+           "small_vs_cpu": small}
+    emit(row)
+    return row
+
+
+def phase_train_embedder() -> dict:
+    """The embedder's step at the committed weights' widths (in 333, T 300,
+    channels 128/64, latent 64) at batch EMB_BATCH: 3 warm-up steps, 20
+    timed on CUDA events (device ms and host enqueue ms each), peak memory;
+    then the small-width gate: one step's loss and gradients on the card
+    against the CPU (EMB_LOSS_RTOL, EMB_GRAD_REL_L2)."""
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.core.motion import axis_angle_to_feats6d
+    from amuse_tpu_torch.eval import embedder as emb
+
+    _, cfg, _ = emb.load(emb.DEFAULT_WEIGHTS)
+    model = emb.make_model(emb.init_params(0, cfg), cfg, "cuda")
+    step, _ = emb.make_train_step(model, 1e-3)
+    rng = np.random.default_rng(3)
+    batch = axis_angle_to_feats6d(torch.as_tensor(
+        (0.2 * rng.normal(size=(EMB_BATCH, cfg.window, 168))).astype(np.float32)).cuda())
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 20
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    host_ms = []
+    events[0].record()
+    losses = []
+    for i in range(n):
+        h0 = time.perf_counter()
+        losses.append(step(batch))
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = [v.item() for v in losses]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"embedder losses did not fall: {losses[0]} -> {losses[-1]}")
+
+    small = emb.EmbedderConfig(in_dim=333, window=30, channels=(16, 8), latent_dim=8)
+    params = emb.init_params(1, small)
+    x = torch.as_tensor(rng.normal(scale=0.3, size=(4, 30, 333)).astype(np.float32))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = emb.make_model(params, small, dev)
+        _, rec = m(x.to(dev))
+        loss = torch.mean((rec - x.to(dev)) ** 2)
+        loss.backward()
+        got[dev] = (loss.item(), {k: p.grad.cpu() for k, p in m.named_parameters()})
+    (l_c, g_c), (l_g, g_g) = got["cpu"], got["cuda"]
+    loss_rel = abs(l_g - l_c) / abs(l_c)
+    grad_rel = (sum(((g_g[k] - g) ** 2).sum() for k, g in g_c.items()).sqrt()
+                / sum((g ** 2).sum() for g in g_c.values()).sqrt()).item()
+    check(loss_rel <= EMB_LOSS_RTOL and grad_rel <= EMB_GRAD_REL_L2,
+          f"embedder step on the card vs the CPU: loss {loss_rel} (limit {EMB_LOSS_RTOL}), "
+          f"gradients {grad_rel} (limit {EMB_GRAD_REL_L2})")
+    row = {"phase": "train_embedder", "batch": EMB_BATCH, "window": cfg.window,
+           "channels": list(cfg.channels), "latent_dim": cfg.latent_dim, "steps": n,
+           "ms_per_step": sum(step_ms) / n, "device_ms_each": step_ms,
+           "host_enqueue_ms_mean": sum(host_ms) / n,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "loss_first_last": [losses[0], losses[-1]],
+           "small_vs_cpu": {"loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+                            "tolerance": [EMB_LOSS_RTOL, EMB_GRAD_REL_L2]}}
+    emit(row)
+    return row
+
+
+def phase_native_loader(root: Path) -> dict:
+    """A cache of NATIVE_WINDOWS windows (2 shards) turned into an ABIN file
+    of the LPDM fields by ``cache_to_abin``; windows per second of an epoch
+    at batch 32 through the pinned prefetch onto the card, from
+    ``NativeWindowLoader.epoch`` and from ``WindowCache.batches``, three
+    epochs each in turns after a warm-up; an epoch on the card bit-equal to
+    the loader's host batches of the same seed; the unmonitored flagship
+    LPDM step at batch 32 fed by each loader (6 steps after a warm-up, twice
+    each, in turns); then the train_gesture CLI with the native loader on
+    the card."""
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.data.cache import WindowCache, betas_for_actor_ids
+    from amuse_tpu_torch.data.prefetch import prefetch_to_device
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.native import loader
+    from amuse_tpu_torch.train import gesture as tg
+    from amuse_tpu_torch.train.audio import step_generator
+
+    cache_dir = _write_cache(root / "cache", NATIVE_WINDOWS, 256, seed=6, audio=False)
+    t0 = time.perf_counter()
+    abin = loader.cache_to_abin(cache_dir, root / "train.abin", fields=LPDM_FIELDS)
+    abin_s = time.perf_counter() - t0
+    ld, wc = loader.NativeWindowLoader(abin), WindowCache(cache_dir)
+
+    def native_epoch(seed):
+        return ld.epoch(LPDM_BATCH, seed=seed)
+
+    def cache_epoch(seed):
+        return wc.batches(LPDM_BATCH, np.random.default_rng(seed))
+
+    feeds = {"native": native_epoch, "window_cache": cache_epoch}
+    rates = {name: [] for name in feeds}
+    for rep in range(4):  # in turns, each order twice; rep 0 warms the page cache
+        for name in (list(feeds) if rep % 2 else list(feeds)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = sum(b["motion"].shape[0] for b in prefetch_to_device(feeds[name](rep), 2, "cuda"))
+            torch.cuda.synchronize()
+            if rep:
+                rates[name].append(n / (time.perf_counter() - t0))
+    got = [{k: v.cpu() for k, v in b.items()}
+           for b in prefetch_to_device(native_epoch(11), 2, "cuda")]
+    want = list(native_epoch(11))
+    check(len(got) == len(want) == NATIVE_WINDOWS // LPDM_BATCH and all(
+        a.keys() == b.keys() and all(torch.equal(a[k], torch.from_numpy(b[k])) for k in b)
+        for a, b in zip(got, want)), "the native loader's batches on the card differ from "
+                                     "its host batches")
+
+    prior_cfg, den_cfg, tcfg = PriorConfig(), DenoiserConfig(), tg.GestureTrainConfig()
+    state = tg.init_state(0, prior_cfg, den_cfg, tcfg, "cuda")
+    step = tg.make_train_step(prior_cfg, den_cfg, tcfg, None, with_monitor=False)
+    def lpdm_batches(name: str, seed: int):
+        for b in feeds[name](seed):
+            yield {k: b[k] for k in ("motion", "con", "emo", "sty")} | {
+                "betas": betas_for_actor_ids(b["actor_id"])}
+
+    step_ms = {name: [] for name in feeds}
+    for rep, name in enumerate(("native", "window_cache", "window_cache", "native")):
+        feed = prefetch_to_device(lpdm_batches(name, 3 + rep), 2, "cuda")
+        step(state, next(feed), step_generator(0, rep, 0, "cuda"))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(6):
+            step(state, next(feed), step_generator(0, rep, 1 + i, "cuda"))
+        torch.cuda.synchronize()
+        step_ms[name].append((time.perf_counter() - t0) * 1e3 / 6)
+        feed.close()
+    ld.close()
+    row = {"phase": "native_loader", "windows": NATIVE_WINDOWS, "batch": LPDM_BATCH,
+           "abin_mb": abin.stat().st_size / 2**20, "cache_to_abin_s": abin_s,
+           "windows_per_s": rates, "lpdm_unmonitored_step_ms": step_ms,
+           "cli": phase_cli_native_loader(root / "cli")}
+    emit(row)
+    return row
+
+
+def phase_cli_native_loader(root: Path) -> dict:
+    """``--fn train_gesture`` with ``gesture.native_loader=true`` on the card
+    at tiny widths (TINY_CFG, 2 takes x 4 windows, batch 4, the 3-step
+    monitor every step): two epochs; a run of one epoch resumed to two logs
+    the unbroken run's epoch 2 (rtol 1e-6); train.abin built beside the cache."""
+    import numpy as np
+
+    rng = np.random.default_rng(15)
+    for actor_id, name in ((2, "scott"), (9, "miranda")):
+        _write_take(root, actor_id, name, "0_9_9", 4, rng)
+    log = OUT / "cli_native_loader.log"
+
+    def cfg(work: str, epochs: int) -> str:
+        c = dict(TINY_CFG, out_dir=str(root / work / "runs"),
+                 gesture={**TINY_CFG["gesture"], "epochs": epochs, "batch_size": 4,
+                          "model_save_freq": 1, "native_loader": True,
+                          "vtex_displacement": False},
+                 data={"data_root": str(root / "beat"), "mosh_root": str(root / "mosh"),
+                       "cache_dir": str(root / "cache"), "stage1_dataset": str(root / "s1.npz"),
+                       "smplx_model_dir": str(root / "nowhere")})
+        (root / f"{work}.json").write_text(json.dumps(c))
+        return str(root / f"{work}.json")
+
+    def train(work: str, epochs: int, *extra) -> dict:
+        _run_cli(["--fn", "train_gesture", "--cfg", cfg(work, epochs), *extra], log, root)
+        run = sorted((root / work / "runs").iterdir())[-1]
+        return {json.loads(x)["step"]: json.loads(x)
+                for x in (run / "metrics.jsonl").read_text().splitlines()} | {"run": run}
+
+    _run_cli(["--fn", "prepare_data", "--cfg", cfg("prep", 1)], log, root)
+    _reset_counts()
+    full = train("full", 2)
+    k3_launches = _sampler_launches()
+    part = train("part", 1)
+    resumed = train("resumed", 2, "--set", f"resume={part['run'] / 'checkpoints'}")
+    want, got = full.get(1, {}), resumed.get(1, {})
+    keys = [k for k in want if k.startswith("train_")]
+    check((root / "cache" / "train.abin").exists() and k3_launches == 4,
+          f"native-loader CLI: train.abin missing or K3 launched {k3_launches} times (4)")
+    check(0 not in resumed and keys and all(
+        math.isfinite(want[k]) and abs(got[k] - want[k]) <= 1e-6 * abs(want[k]) for k in keys),
+        f"native-loader run resumed at epoch 2 {got} differs from the unbroken run's {want}")
+    return {"k3_launches": k3_launches, "epoch2": {k: want[k] for k in keys},
+            "resumed_max_rel_diff": max(abs(got[k] - want[k]) / abs(want[k]) for k in keys)}
+
+
+def run_eval() -> dict:
+    """eval_gesture, train_embedder and the native loader, each in a
+    temporary directory."""
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["eval"] = phase_eval_gesture(Path(tmp) / "eval")
+    rows["embedder"] = phase_train_embedder()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["native"] = phase_native_loader(Path(tmp))
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
                                                  "PyTorch/CUDA port on one NVIDIA GPU.")
@@ -1788,6 +2251,9 @@ def main(argv=None) -> int:
     parser.add_argument("--only-train-gesture", action="store_true",
                         help="the same for the three LPDM phases: small widths against the "
                              "CPU, the flagship step, the train_gesture CLI")
+    parser.add_argument("--only-eval", action="store_true",
+                        help="the same for eval_gesture at the flagship widths, the "
+                             "embedder's train step and the native ABIN loader")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -1816,7 +2282,7 @@ def main(argv=None) -> int:
     phase_build()
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
             or args.only_train_step or args.only_edit or args.only_prepare_data
-            or args.only_train_gesture):
+            or args.only_train_gesture or args.only_eval):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -1832,6 +2298,8 @@ def main(argv=None) -> int:
             run_edit_and_prepare("edit" if args.only_edit else "prepare", with_prepare=both)
         if args.only_train_gesture:
             run_train_gesture()
+        if args.only_eval:
+            run_eval()
         return 0
     k1_cases = phase_attention()
     k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
@@ -1845,6 +2313,7 @@ def main(argv=None) -> int:
     phase_cli_train()
     edit_rows = run_edit_and_prepare()
     lpdm = run_train_gesture()
+    evals = run_eval()
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/attention_fwd.cu",
@@ -1889,6 +2358,10 @@ def main(argv=None) -> int:
     kernels[1]["lpdm_step_n32"] = {k: step["k3_n32"][k] for k in (
         "windows", "cluster", "max_abs_err", "tolerance", "ms", "wrapper_ms", "plain_ms",
         "bound_ms", "bound_by")}
+    ev = evals["eval"]
+    kernels[1]["launches_eval_gesture"] = ev["k3_launches"]
+    kernels[1]["launches_eval_gesture_per"] = f"evaluate_cache over {ev['windows']} windows"
+    kernels[1]["eval_tail"] = ev["k3_tail"]
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     (OUT / "kernels.json").write_text(json.dumps({"kernels": kernels, "nvidia_smi": smi,
                                                   "seconds": time.perf_counter() - t_start},

@@ -224,9 +224,10 @@ class TestSchedulers:
 
 
 def test_port_imports_neither_jax_nor_amuse_tpu():
-    """Import every module of amuse_tpu_torch in a fresh interpreter: no jax,
-    and no module named amuse_tpu or amuse_tpu.* (amuse_tpu_torch shares the
-    prefix without the dot)."""
+    """Import every module of amuse_tpu_torch in a fresh interpreter (the
+    evaluation modules and the native loader among them): no jax, and no
+    module named amuse_tpu or amuse_tpu.* (amuse_tpu_torch shares the prefix
+    without the dot)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import amuse_tpu_torch\n"
@@ -235,8 +236,10 @@ def test_port_imports_neither_jax_nor_amuse_tpu():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'amuse_tpu' or k.startswith('amuse_tpu.')]\n"
         "n = sum(k.startswith('amuse_tpu_torch') for k in sys.modules)\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 20 else 0)\n"
+        "need = ['amuse_tpu_torch.eval.' + m for m in ('metrics', 'embedder', 'runner')]\n"
+        "missing = [m for m in need + ['amuse_tpu_torch.native.loader'] if m not in sys.modules]\n"
+        "print(n, bad, missing)\n"
+        "sys.exit(1 if bad or missing or n < 20 else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=300)

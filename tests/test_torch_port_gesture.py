@@ -789,13 +789,18 @@ class TestCli:
         assert files and np.load(files[0])["poses"].shape == (300, 55, 3)
         assert sorted(runs.glob("*/e_gesture/rep0/emotion_swapped/seq_*/*.npz"))
 
-    def test_refusals_and_clamp(self, beat_cache, tmp_path, capsys):
-        """The native ABIN loader is refused naming ROADMAP's item; a batch
-        above the cache's 8 windows is clamped to it; without a card the
-        default device raises."""
+    def test_refusals_and_clamp(self, beat_cache, tmp_path, capsys, monkeypatch):
+        """The native ABIN loader whose build fails raises (no fallback to the
+        Python cache); a batch above the cache's 8 windows is clamped to it;
+        without a card the default device raises."""
+        from amuse_tpu_torch.native import loader
+
+        (tmp_path / "broken.cc").write_text("not C++\n")
+        monkeypatch.setattr(loader, "SRC", tmp_path / "broken.cc")
         cfg = _cfg(beat_cache, tmp_path / "n", {"native_loader": True})
-        with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
             cli.main(["--fn", "train_gesture", "--cfg", cfg, "--device", "cpu"])
+        monkeypatch.undo()
         cfg = _cfg(beat_cache, tmp_path / "c", {"batch_size": 32, "vtex_displacement": False,
                                                 "monitor_every": 2})
         cli.main(["--fn", "train_gesture", "--cfg", cfg, "--device", "cpu"])

@@ -839,3 +839,140 @@ def test_lpdm_prefetched_epoch_is_bit_equal(cuda):
     (la, pa), (lb, pb) = runs["prefetch"], runs["default_stream"]
     assert len(la) == 4 and la == lb
     assert all(torch.equal(x, y) for x, y in zip(pa, pb))
+
+
+# ------------------------------------------- evaluation, embedder, native loader
+#
+# The eval at small widths (prior and denoiser d 32, 300-frame windows, 10
+# DDIM steps) with the committed embedder and a 40-vertex rig of the SMPL-X
+# tree, on the card and on the CPU: the same initial latents (a CPU
+# generator per batch) and diversity pairs (a CPU generator), so every key
+# of the report must agree.
+EVAL_RTOL = 1e-3
+EMB_LOSS_RTOL, EMB_GRAD_REL_L2 = 1e-5, 1e-5
+
+
+def _eval_cache(n, cond_dim, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        audio = np.zeros(48000)  # silence and loud bursts: onsets far above threshold
+        for s in range(500 + 37 * i, 48000 - 640, 5300):
+            audio[s:s + 640] += 0.3 * rng.normal(size=640)
+        items.append({"motion": (0.2 * rng.normal(size=(300, 168))).astype(np.float32),
+                      **{k: rng.normal(size=cond_dim).astype(np.float32)
+                         for k in ("con", "emo", "sty")},
+                      "actor_id": np.int32(i % 5), "audio": audio.astype(np.float32)})
+    return items
+
+
+@pytest.mark.parametrize("space", ["rotation", "position"])
+def test_eval_on_the_card_matches_cpu(cuda, space):
+    """10 windows at batch 4 (K3 at N = 4, 4, 2): every numeric key of the
+    report within EVAL_RTOL of the CPU's, the labels and R-precision counts
+    equal; the audio beats found by the card's fbank equal the CPU's."""
+    import numpy as np
+
+    from amuse_tpu_torch.core import smplx
+    from amuse_tpu_torch.eval import embedder as emb
+    from amuse_tpu_torch.eval import runner
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+    from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_fused
+
+    prior_cfg, den_cfg, ast_cfg = _small_cfgs()
+    params = init_random_params(7, prior_cfg, den_cfg, ast_cfg)
+    cache = _eval_cache(10, den_cfg.cond_dim)
+    rig = (smplx.make_test_model(num_vertices=40, num_joints=55, num_betas=10,
+                                 parents=smplx.SMPLX_PARENTS) if space == "position" else None)
+    reports = {}
+    for dev in ("cpu", "cuda"):
+        pipe = GesturePipeline(params, prior_cfg, den_cfg, ast_cfg, dtype=torch.float32,
+                               num_inference_steps=10, device=dev)
+        before = ddim_sample_fused.launches
+        reports[dev] = runner.evaluate_cache(pipe, cache, batch_size=4, seed=3,
+                                             smplx_model=None if rig is None else rig.to(dev),
+                                             embedder=emb.load(emb.DEFAULT_WEIGHTS))
+        assert ddim_sample_fused.launches - before == (3 if dev == "cuda" else 0)
+    cpu, gpu = reports["cpu"], reports["cuda"]
+    assert gpu.keys() == cpu.keys() and gpu["metric_space"] == space
+    for k, v in cpu.items():
+        if isinstance(v, str) or k.startswith("r_precision_top"):
+            assert gpu[k] == v, k
+        else:
+            assert gpu[k] == pytest.approx(v, rel=EVAL_RTOL, abs=1e-6), k
+    waves = np.stack([it["audio"] for it in cache])
+    for a, b in zip(runner.audio_beats(waves, cuda), runner.audio_beats(waves, "cpu")):
+        assert a.size >= 4 and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 7])
+def test_sampler_tail_batches_match_plain(cuda, n):
+    """K3 at the eval's tail sizes (N = n_windows mod 32), flagship dims, 50
+    steps, as the pipeline launches it (its packed weights and schedule
+    conditioning): within 2e-4 of the plain loop (chip_smoke.K3_TOL)."""
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.ops import denoiser_kernel as dk
+
+    den, sched = _sampler_denoiser(cuda, "flagship"), make_schedule()
+    (con, emo, sty), x0 = _sampler_inputs(cuda, den, n, 5, seed=700 + n)
+    weights = dk.SamplerWeights(dk.pack_denoiser(den))
+    sched_cond = dk.schedule_conditioning(den, sched, 50)
+    before = dk.ddim_sample_fused.launches
+    out = dk.ddim_sample_fused(den, sched, con, emo, sty, 50, initial_latents=x0,
+                               packed=weights, conditioning=sched_cond)
+    ref = dk.ddim_sample_reference(den, sched, con, emo, sty, x0, 50)
+    torch.cuda.synchronize()
+    assert dk.ddim_sample_fused.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+
+
+def test_embedder_step_on_the_card_matches_cpu(cuda):
+    """The committed embedder's widths (in 333, T 300, channels 128/64,
+    latent 64), batch 4: forward, reconstruction loss and gradients on the
+    card against the CPU (loss EMB_LOSS_RTOL, gradients EMB_GRAD_REL_L2,
+    relative L2 over all of them); the embedding within 1e-5."""
+    import numpy as np
+
+    from amuse_tpu_torch.eval import embedder as emb
+
+    params, cfg, _ = emb.load(emb.DEFAULT_WEIGHTS)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        scale=0.3, size=(4, cfg.window, cfg.in_dim)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = emb.make_model(params, cfg, dev)
+        z, rec = model(x.to(dev))
+        loss = torch.mean((rec - x.to(dev)) ** 2)
+        loss.backward()
+        out[str(dev)] = (z.detach().cpu(), loss.item(),
+                         {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (z_c, l_c, g_c), (z_g, l_g, g_g) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(z_g, z_c, atol=1e-5, rtol=1e-5)
+    assert abs(l_g - l_c) <= EMB_LOSS_RTOL * abs(l_c)
+    num = sum(((g_g[n] - g) ** 2).sum() for n, g in g_c.items())
+    assert num.sqrt() <= EMB_GRAD_REL_L2 * sum((g ** 2).sum() for g in g_c.values()).sqrt()
+
+
+def test_native_loader_batches_reach_the_card_intact(cuda, tmp_path):
+    """An epoch of the native loader through the pinned prefetch onto the
+    card is bit-equal to the same seed's host batches."""
+    import numpy as np
+
+    from amuse_tpu_torch.data.prefetch import prefetch_to_device
+    from amuse_tpu_torch.native import loader
+
+    rng = np.random.default_rng(8)
+    path = loader.write_abin(tmp_path / "c.abin", {
+        "motion": rng.normal(size=(70, 300, 168)).astype(np.float32),
+        "actor_id": rng.integers(0, 30, 70).astype(np.int32),
+        "con": rng.normal(size=(70, 256)).astype(np.float32)})
+    ld = loader.NativeWindowLoader(path)
+    got = [{k: v.cpu() for k, v in b.items()}
+           for b in prefetch_to_device(ld.epoch(8, seed=5), 3, cuda)]
+    want = list(ld.epoch(8, seed=5))
+    assert len(got) == len(want) == 8
+    for a, b in zip(got, want):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], torch.from_numpy(b[k])) for k in b)
