@@ -2,18 +2,25 @@
 
     python -m amuse_tpu_torch.cli.main
         --fn {infer_gesture,edit_gesture,prepare_data,train_audio,train_gesture,
-              eval_gesture,train_embedder}
+              eval_gesture,train_embedder,bvh2smplx_,render_gt,render_baselines,
+              blender_setup}
         [--cfg tiny.json] [--set key=value ...] [--wav-dir DIR] [--device cuda|cpu]
+
+The eleven tasks of the JAX package's CLI, over the same JSON configs.
 
 ``infer_gesture`` turns every WAV under ``--wav-dir`` into SMPL-X npz files,
 one per 10 s window, under ``<out_dir>/<timestamp>/gesture/<stem>/rep<r>/seq_<i>/``
-(the JAX CLI's layout and per-WAV seed folding).
+(the JAX CLI's layout and per-WAV seed folding), then renders each window
+with Blender and muxes its 10 s of audio in with ffmpeg where those are on
+PATH (``viz/export.py::render_windows``).
 
 ``edit_gesture`` runs the editing tasks the ``test.*`` flags select
 (emotion_control, style_transfer, style_Xemo_transfer) on the BEAT tree at
 ``data.data_root``, and the demo emotion swap over the first two WAVs of
-``viz_dump/test/e_speech``, each replication under ``rep<r>/``; it writes
-npz files only (rendering is not ported).
+``viz_dump/test/e_speech``, each replication under ``rep<r>/``. The
+dataset tasks' windows are rendered like infer_gesture's, and the first
+video of each variant goes into ``<source>/comparison_grid.mp4`` (2 columns
+up to 4 variants, else 4).
 
 ``prepare_data`` builds the stage-2 window cache (frozen-AST features, one
 ``encode_audio`` per take) at ``data.cache_dir`` and the stage-1 quad
@@ -43,11 +50,23 @@ unless ``debug``. ``train_embedder`` trains that external embedder on the
 cache's ground-truth windows and writes ``embedder.npz`` (the JAX
 package's format), which ``data.embedder_path`` selects.
 
+``bvh2smplx_`` converts every ``data.data_root/*/*.bvh`` into a SMPL-X npz
+under ``data.mosh_root`` (skipping those already there): a retargeted SMPL-X
+rig directly, a raw BEAT skeleton through Blender's Auto-Rig-Pro retarget
+where Blender and ``data.tpose_smplx_bvh`` are given. Its axis-angle
+conversion runs on the device. ``render_gt`` slices the MoSh takes into
+per-window npz files under ``<run>/GT/`` and renders them;
+``render_baselines`` does the same for ``data.baselines_root/<method>/``
+and the ground truth of the takes they cover (each take once), with a
+side-by-side grid per window. ``blender_setup`` installs and enables the
+addon archives under ``data.blender_addons_dir`` and exits 1 unless
+Blender is ready. The render tasks and ``blender_setup`` run on the host
+only and put nothing on the device.
+
 Weights come from ``AMUSE_TPU_CKPT`` (and ``AMUSE_TPU_AST_CKPT``), read by
 ``utils/checkpoint_io.py``; with neither set they are random, seeded by
-``cfg.seed``. The device defaults to ``cuda`` and the run fails without a
-GPU. The other tasks (``bvh2smplx_``, ``render_gt``, ``render_baselines``,
-``blender_setup``) are not ported yet.
+``cfg.seed``. The device defaults to ``cuda`` and every task fails without
+a GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -59,13 +78,6 @@ import zlib
 from pathlib import Path
 
 import torch
-
-TASK_NAMES = (
-    "blender_setup", "bvh2smplx_", "edit_gesture", "eval_gesture", "infer_gesture",
-    "prepare_data", "render_baselines", "render_gt", "train_audio", "train_embedder",
-    "train_gesture",
-)
-
 
 def _model_cfgs(cfg):
     """Config dataclasses -> the port's model configs."""
@@ -186,18 +198,33 @@ def _build_stage2(cfg, subset, device):
                              window_frames=cfg.data.window_frames, ast_source=ast_source)
 
 
-def _export_edit_results(run_dir: Path, task_name: str, results: dict) -> None:
+def _viz_kwargs(cfg) -> dict:
+    """cfg.viz -> render_windows' scene preset, engine, resolution, samples."""
+    return dict(engine=cfg.viz.engine, preset=cfg.viz.preset,
+                resolution=cfg.viz.resolution, samples=cfg.viz.samples)
+
+
+def _export_edit_results(run_dir: Path, task_name: str, results: dict,
+                         viz_kwargs: dict) -> None:
     """One npz per window and variant, jaw zeroed, under
-    ``<run_dir>/<task_name>/<source>/<variant>/seq_<i>/``."""
+    ``<run_dir>/<task_name>/<source>/<variant>/seq_<i>/``, each rendered; the
+    first video of every variant of a source goes into its comparison grid."""
     from amuse_tpu_torch.core.motion import zero_jaw
-    from amuse_tpu_torch.viz.export import export_windows
+    from amuse_tpu_torch.viz.export import concat_grid, export_windows, render_windows
 
     for source_key, variants in results.items():
+        variant_videos = []
         for variant, (poses, trans) in variants.items():
-            export_windows(run_dir / task_name / source_key / variant,
-                           {"poses": zero_jaw(torch.from_numpy(poses)).numpy(),
-                            "trans": trans, "fps": 30.0},
-                           subject=source_key.split("_")[0], stem=variant)
+            paths = export_windows(run_dir / task_name / source_key / variant,
+                                   {"poses": zero_jaw(torch.from_numpy(poses)).numpy(),
+                                    "trans": trans, "fps": 30.0},
+                                   subject=source_key.split("_")[0], stem=variant)
+            videos = render_windows(paths, **viz_kwargs)
+            if videos:
+                variant_videos.append(videos[0])
+        if len(variant_videos) >= 2:
+            concat_grid(variant_videos, run_dir / task_name / source_key / "comparison_grid.mp4",
+                        cols=2 if len(variant_videos) <= 4 else 4)
     print(f"[edit] {task_name}: {len(results)} sources -> {run_dir / task_name}")
 
 
@@ -219,6 +246,7 @@ def task_edit_gesture(cfg, device: torch.device):
     run_dir = _setup(cfg)
     pipe = _make_pipeline(cfg, device)
     t = cfg.test
+    viz = _viz_kwargs(cfg)
     dataset_tasks = t.emotion_control or t.style_transfer or t.style_xemo_transfer
     reps = max(1, t.replication_times)
     data_root = Path(cfg.data.data_root)
@@ -237,14 +265,16 @@ def task_edit_gesture(cfg, device: torch.device):
                 items = eval_sets.emotion_control_set(takes, t.actors[0])
                 _export_edit_results(
                     run_dir, f"emotion_control/rep{rep}",
-                    editing.emotion_control(pipe, [encode_item(i) for i in items], seed_r))
+                    editing.emotion_control(pipe, [encode_item(i) for i in items], seed_r),
+                    viz)
             if t.style_transfer and len(t.actors) >= 2:
                 a1, a2 = eval_sets.style_transfer_set(takes, t.actors[0], t.actors[1],
                                                       t.emotion)
                 _export_edit_results(
                     run_dir, f"style_transfer/rep{rep}",
                     editing.style_transfer(pipe, [encode_item(i) for i in a1],
-                                           [encode_item(i) for i in a2], seed_r))
+                                           [encode_item(i) for i in a2], seed_r),
+                    viz)
             if t.style_xemo_transfer and len(t.actors) >= 2:
                 try:
                     corners = eval_sets.style_xemo_set(
@@ -257,7 +287,8 @@ def task_edit_gesture(cfg, device: torch.device):
                     _export_edit_results(
                         run_dir, f"style_Xemo_transfer/rep{rep}",
                         editing.style_xemo_transfer(pipe, enc["a1_e1"], enc["a1_e2"],
-                                                    enc["a2_e1"], enc["a2_e2"], seed_r))
+                                                    enc["a2_e1"], enc["a2_e2"], seed_r),
+                        viz)
 
         demo_dir = Path("viz_dump/test/e_speech")
         wavs = sorted(demo_dir.glob("*.wav"))
@@ -271,7 +302,6 @@ def task_edit_gesture(cfg, device: torch.device):
         elif rep == 0 and not dataset_tasks:
             print(f"[edit] no demo wavs under {demo_dir} and no cfg.test task enabled")
             break
-    print("[edit] rendering (Blender, ffmpeg) is not ported yet; wrote the npz files only")
 
 
 def task_train_audio(cfg, device: torch.device):
@@ -549,11 +579,12 @@ def task_train_embedder(cfg, device: torch.device):
 
 
 def task_infer_gesture(cfg, wav_dir: str = "viz_dump/test/speech", device: str = "cuda"):
-    """Custom WAV -> SMPL-X npz per 10 s window."""
+    """Custom WAV -> SMPL-X npz per 10 s window, each rendered and muxed with
+    its 10 s of audio where Blender and ffmpeg are on PATH."""
     from amuse_tpu_torch.audio.fbank import CHUNK_SAMPLES
     from amuse_tpu_torch.audio.wavio import load_wav_resampled
     from amuse_tpu_torch.data.actors import NAME_TO_GENDER
-    from amuse_tpu_torch.viz.export import export_windows
+    from amuse_tpu_torch.viz.export import export_windows, render_windows
 
     run_dir = _setup(cfg)
     pipe = _make_pipeline(cfg, device)
@@ -579,8 +610,203 @@ def task_infer_gesture(cfg, wav_dir: str = "viz_dump/test/speech", device: str =
             result = pipe.infer_wav(wave, seed=wav_seed)
             rep_dir = run_dir / "gesture" / wav.stem / f"rep{rep}"
             paths = export_windows(rep_dir, result, subject=subject, stem=wav.stem)
+            videos = render_windows(paths, wav_path=wav, **_viz_kwargs(cfg))
+            if videos:
+                print(f"[infer] rendered {len(videos)} videos under {rep_dir}")
         print(f"[infer] {wav.name}: {len(paths)} windows x {reps} reps -> "
               f"{run_dir / 'gesture' / wav.stem}")
+
+
+def task_blender_setup(cfg, device: torch.device):
+    """Bare Blender -> render/retarget-ready: install and enable every addon
+    archive under ``data.blender_addons_dir``, verify, and report what is
+    still missing and where to obtain it; exit 1 unless ready. Host-side:
+    nothing goes on the device."""
+    from amuse_tpu_torch.viz import blender_setup as bs
+
+    report = bs.setup(cfg.data.blender_addons_dir)
+    report.print()
+    if not report.ok:
+        raise SystemExit(1)
+
+
+def _slice_window_npzs(cfg, npz_path: Path, out_root: Path) -> list:
+    """Slice one motion npz into per-window SMPL-X npzs under
+    ``out_root/<stem>/seq_<i>/<stem>.npz`` (the windowing and layout of both
+    render_gt and render_baselines) -> [npz path, ...]."""
+    import numpy as np
+
+    from amuse_tpu_torch.viz.export import write_smplx_npz
+
+    d = np.load(npz_path)
+    poses = np.asarray(d["poses"], np.float32)
+    trans = np.asarray(d["trans"], np.float32)
+    win = cfg.data.window_frames
+    subject = npz_path.stem.split("_")[1] if "_" in npz_path.stem else ""
+    paths = []
+    for i in range(poses.shape[0] // win):
+        p = out_root / npz_path.stem / f"seq_{i}" / f"{npz_path.stem}.npz"
+        write_smplx_npz(p, poses[i * win:(i + 1) * win].reshape(win, -1, 3),
+                        trans[i * win:(i + 1) * win], subject=subject, fps=float(cfg.data.fps))
+        paths.append(p)
+    return paths
+
+
+def _gt_window_npzs(cfg, out_root: Path, limit: int = 0, stems=None) -> list:
+    """Slice the ground-truth MoSh npzs into per-window SMPL-X npzs ->
+    [(stem, wav or None, [npz, ...])]. ``stems`` restricts them to the takes
+    a baseline covers, so that the rest of mosh_root is not written."""
+    mosh = sorted(Path(cfg.data.mosh_root).glob("*.npz"))
+    if stems is not None:
+        mosh = [p for p in mosh if p.stem in stems]
+    if cfg.test.actors:
+        mosh = [p for p in mosh if any(a in p.stem.split("_") for a in cfg.test.actors)]
+    if limit:
+        mosh = mosh[:limit]
+    items = []
+    for npz_path in mosh:
+        paths = _slice_window_npzs(cfg, npz_path, out_root)
+        if not paths:
+            continue
+        wavs = sorted(Path(cfg.data.data_root).glob(f"*/{npz_path.stem}.wav"))
+        items.append((npz_path.stem, wavs[0] if wavs else None, paths))
+    return items
+
+
+def task_render_gt(cfg, device: torch.device):
+    """Ground-truth MoSh windows -> per-window SMPL-X npz -> Blender render ->
+    audio mux, under ``<run>/GT/``. The npz tree is written without Blender
+    too (it is the product). Host-side: nothing goes on the device."""
+    from amuse_tpu_torch.viz.export import have_binary, render_windows
+
+    out_root = _setup(cfg) / "GT"
+    items = _gt_window_npzs(cfg, out_root)
+    if not items:
+        print(f"[render_GT] no MoSh npz under {cfg.data.mosh_root}")
+        return
+    n_vid = 0
+    for stem, wav, paths in items:
+        videos = render_windows(paths, wav_path=wav, **_viz_kwargs(cfg))
+        n_vid += len(videos)
+        print(f"[render_GT] {stem}: {len(paths)} windows, {len(videos)} videos")
+    if not have_binary("blender"):
+        print("[render_GT] blender not on PATH: npz written, no mp4s - run "
+              "--fn blender_setup after installing Blender")
+    print(f"[render_GT] {sum(len(p) for _, _, p in items)} window npz, "
+          f"{n_vid} videos -> {out_root}")
+
+
+def task_render_baselines(cfg, device: torch.device):
+    """Each ``data.baselines_root/<method>/<take_stem>.npz`` sliced and
+    rendered like render_gt, beside the ground truth of the same take (sliced
+    only for the takes some method covers, rendered once per take), with a
+    GT-against-baseline grid per window. Host-side: nothing goes on the
+    device."""
+    from amuse_tpu_torch.viz.export import concat_grid, have_binary, render_windows
+
+    run_dir = _setup(cfg)
+    root = Path(cfg.data.baselines_root)
+    methods = sorted(p for p in root.iterdir() if p.is_dir()) if root.is_dir() else []
+    if not methods:
+        print(f"[render_baselines] no <method> dirs under {root}")
+        return
+    covered = {p.stem for m in methods for p in m.glob("*.npz")}
+    gt_items = {s: (w, p) for s, w, p in _gt_window_npzs(cfg, run_dir / "GT", stems=covered)}
+    gt_rendered: dict = {}  # stem -> videos: Blender minutes dominate this task
+    for method in methods:
+        for npz_path in sorted(method.glob("*.npz")):
+            stem = npz_path.stem
+            paths = _slice_window_npzs(cfg, npz_path, run_dir / method.name)
+            wav, gt_paths = gt_items.get(stem, (None, []))
+            base_videos = render_windows(paths, wav_path=wav, **_viz_kwargs(cfg))
+            if stem not in gt_rendered:
+                gt_rendered[stem] = (render_windows(gt_paths, wav_path=wav, **_viz_kwargs(cfg))
+                                     if gt_paths else [])
+            for i, (gv, bv) in enumerate(zip(gt_rendered[stem], base_videos)):
+                concat_grid([gv, bv],
+                            run_dir / method.name / stem / f"seq_{i}" / "gt_vs_baseline.mp4",
+                            cols=2)
+            print(f"[render_baselines] {method.name}/{stem}: "
+                  f"{len(paths)} windows, {len(base_videos)} videos")
+    if not have_binary("blender"):
+        print("[render_baselines] blender not on PATH: npz written, no mp4s")
+
+
+def task_bvh2smplx(cfg, device: torch.device):
+    """BEAT BVH -> SMPL-X npz under ``data.mosh_root``, ready for prepare_data.
+
+    A BVH that is already a retargeted SMPL-X rig (>= 55 joints rooted at
+    pelvis) is converted directly: parsed on the host, its Euler -> axis-angle
+    conversion on ``device``. A raw BEAT skeleton goes through Blender's
+    Auto-Rig-Pro retarget (``viz/blender/retarget_bvh.py``) when Blender and
+    ``data.tpose_smplx_bvh`` are there, and is skipped with the reason
+    otherwise. An existing output is kept, so a run restarts where it stopped.
+    """
+    import subprocess
+
+    from amuse_tpu_torch.data.bvh import (
+        convert_retargeted_bvh_to_npz,
+        looks_like_smplx_rig,
+        parse_bvh,
+    )
+    from amuse_tpu_torch.viz.export import have_binary
+
+    bvhs = sorted(Path(cfg.data.data_root).glob("*/*.bvh"))
+    if not bvhs:
+        print(f"[bvh2smplx_] no .bvh files under {cfg.data.data_root}")
+        return
+    out_root = Path(cfg.data.mosh_root)
+    blender = have_binary("blender")
+    shim = Path(__file__).resolve().parents[1] / "viz" / "blender" / "retarget_bvh.py"
+    done = skipped = 0
+    for bvh_path in bvhs:
+        stem = bvh_path.stem  # e.g. 2_scott_0_9_9
+        parts = stem.split("_")
+        subject = parts[1] if len(parts) > 1 and not parts[1].isdigit() else ""
+        out_npz = out_root / f"{stem}.npz"
+        if out_npz.exists():
+            continue
+        parsed = parse_bvh(bvh_path)
+        n_joints = sum(1 for j in parsed.joints if not j.is_end_site)
+        # the joint count alone cannot tell a SMPL-X rig from a raw ~75-joint
+        # BEAT capture: the permutation map would write garbage from the latter
+        if n_joints >= 55 and looks_like_smplx_rig(parsed):
+            convert_retargeted_bvh_to_npz(bvh_path, out_npz, subject=subject, parsed=parsed,
+                                          device=device)
+            done += 1
+        elif blender and cfg.data.tpose_smplx_bvh:
+            cmd = ["blender", "-b", "-P", str(shim), "--", str(bvh_path),
+                   cfg.data.tpose_smplx_bvh, str(out_npz), cfg.data.arp_preset, subject]
+            rc = subprocess.run(cmd, capture_output=True, text=True)
+            retargeted = out_npz.with_suffix(out_npz.suffix + ".retargeted.bvh")
+            if rc.returncode != 0 or not retargeted.exists():
+                print(f"[bvh2smplx_] blender failed on {bvh_path.name}: {rc.stderr[-300:]}")
+                skipped += 1
+            else:  # the conversion runs here: Blender's Python has no torch
+                convert_retargeted_bvh_to_npz(retargeted, out_npz, subject=subject,
+                                              device=device)
+                done += 1
+        else:
+            reason = ("needs Blender + Auto-Rig-Pro (not available here)" if not blender
+                      else "set data.tpose_smplx_bvh to the SMPL-X T-pose rig")
+            print(f"[bvh2smplx_] {bvh_path.name}: {n_joints}-joint BEAT "
+                  f"skeleton; retarget {reason}")
+            skipped += 1
+    print(f"[bvh2smplx_] converted {done}, skipped {skipped} -> {out_root}")
+
+
+TASKS = {
+    "blender_setup": task_blender_setup,
+    "bvh2smplx_": task_bvh2smplx,
+    "edit_gesture": task_edit_gesture,
+    "eval_gesture": task_eval_gesture,
+    "prepare_data": task_prepare_data,
+    "render_baselines": task_render_baselines,
+    "render_gt": task_render_gt,
+    "train_audio": task_train_audio,
+    "train_embedder": task_train_embedder,
+    "train_gesture": task_train_gesture,
+}
 
 
 def main(argv=None):
@@ -588,27 +814,18 @@ def main(argv=None):
     from amuse_tpu_torch.device import resolve_device
 
     p = argparse.ArgumentParser(prog="amuse-tpu-torch")
-    p.add_argument("--fn", required=True, help=f"task, one of {', '.join(TASK_NAMES)}")
+    p.add_argument("--fn", required=True, choices=sorted([*TASKS, "infer_gesture"]))
     p.add_argument("--cfg", default=None, help="JSON config file")
     p.add_argument("--set", action="append", default=[], help="override key=value")
     p.add_argument("--wav-dir", default="viz_dump/test/speech")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.fn not in TASK_NAMES:
-        p.error(f"unknown --fn {args.fn!r}; tasks: {', '.join(TASK_NAMES)}")
-    ported = {"edit_gesture": task_edit_gesture, "eval_gesture": task_eval_gesture,
-              "infer_gesture": task_infer_gesture, "prepare_data": task_prepare_data,
-              "train_audio": task_train_audio, "train_embedder": task_train_embedder,
-              "train_gesture": task_train_gesture}
-    if args.fn not in ported:
-        raise SystemExit(f"--fn {args.fn}: not yet ported to amuse_tpu_torch "
-                         f"({', '.join(ported)} are)")
     cfg = load_config(args.cfg, parse_cli_overrides(args.set))
     device = resolve_device(args.device)
     if args.fn == "infer_gesture":
         task_infer_gesture(cfg, args.wav_dir, device)
     else:
-        ported[args.fn](cfg, device)
+        TASKS[args.fn](cfg, device)
 
 
 if __name__ == "__main__":

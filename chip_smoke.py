@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only-prepare-data  # build, then prepare_data alone
     python3 chip_smoke.py --only-train-gesture  # build, then the three LPDM phases alone
     python3 chip_smoke.py --only-eval  # build, then eval_gesture, train_embedder, native loader
+    python3 chip_smoke.py --only-host-tasks  # build, then bvh2smplx_, render tasks, blender_setup
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -36,7 +37,13 @@ the kernels' launch counters that each went through its kernels:
   * evaluation: ``evaluate_cache`` over 100 windows at the flagship widths
     (K3 once per batch of 32, the tail of 4 included) against its small-width
     run on the CPU; the external embedder's train step; the native ABIN
-    loader through the pinned prefetch, and ``train_gesture`` fed by it.
+    loader through the pinned prefetch, and ``train_gesture`` fed by it;
+  * the host-side tasks: ``bvh2smplx_`` over a 60 s and a 10 min take on the
+    card against the CPU, ``render_gt``/``render_baselines`` trees card
+    against CPU, ``mux_audio``/``concat_grid`` on real ffmpeg where it is
+    installed, ``blender_setup`` without Blender, and ``infer_gesture`` at
+    the flagship widths with its render wiring (recording stubs named
+    ``blender`` and ``ffmpeg``; K1, K3).
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -2226,6 +2233,307 @@ def run_eval() -> dict:
     return rows
 
 
+# the host-side tasks: bvh2smplx_ at BEAT's size, the render tasks, the
+# render wiring of infer_gesture, blender_setup
+BVH_TAKES = {"2_scott_0_9_9": 1800, "2_scott_0_10_10": 18000}  # 60 s and a 10 min conversation
+BVH_AA_TOL = 1e-5  # converted poses, card against CPU, through their rotation matrices
+RECORDING_STUB = """#!/bin/sh
+echo "{name} $@" >> {log}
+out=""
+for a in "$@"; do case "$a" in *.mp4) out="$a";; esac; done
+[ -n "$out" ] && : > "$out"
+exit 0
+"""
+
+
+def _write_rig(path: Path, frames: int, seed: int, root: str = "pelvis", joints: int = 55):
+    """A chain skeleton as an Auto-Rig-Pro export writes it (root position,
+    ZYX rotation channels, frame time 0.033333) with random Euler angles, in
+    the port's BVH writer."""
+    import numpy as np
+
+    from amuse_tpu_torch.data import bvh
+
+    rng = np.random.default_rng(seed)
+    rot = ["Zrotation", "Yrotation", "Xrotation"]
+    js = [bvh.BvhJoint(root, -1, np.zeros(3), ["Xposition", "Yposition", "Zposition", *rot])]
+    js += [bvh.BvhJoint(f"j{i}", i - 1, rng.normal(scale=10, size=3), list(rot))
+           for i in range(1, joints)]
+    js.append(bvh.BvhJoint(f"j{joints - 1}_end", joints - 1, np.array([0.0, 5.0, 0.0]), [],
+                           is_end_site=True))
+    data = rng.uniform(-180, 180, size=(frames, 6 + 3 * (joints - 1)))
+    data[:, :3] = rng.normal(scale=50, size=(frames, 3))
+    bvh.write_bvh(path, bvh.BvhData(js, data, 0.033333))
+
+
+def _stubs(root: Path) -> tuple[Path, Path]:
+    """Recording blender and ffmpeg stubs in ``root`` -> (bin dir, argv log)."""
+    bindir, log = root / "stub_bin", root / "stub_calls.log"
+    bindir.mkdir(parents=True, exist_ok=True)
+    for name in ("blender", "ffmpeg"):
+        (bindir / name).write_text(RECORDING_STUB.format(name=name, log=log))
+        (bindir / name).chmod(0o755)
+    return bindir, log
+
+
+def _with_path(path: str, fn):
+    """fn() with PATH set to ``path``, restored after."""
+    saved = os.environ["PATH"]
+    os.environ["PATH"] = path
+    try:
+        return fn()
+    finally:
+        os.environ["PATH"] = saved
+
+
+def _bvh_split(root: Path) -> dict:
+    """Per take: parse (host), Euler -> float64 matrices (host), matrix ->
+    axis-angle on the card (CUDA events, the card-resident matrices) against
+    the CPU (host clock), the whole conversion with its copies, and the npz
+    write."""
+    import torch
+
+    from amuse_tpu_torch.core.rotations import matrix_to_axis_angle
+    from amuse_tpu_torch.data import bvh
+
+    rows = {}
+    for stem in BVH_TAKES:
+        t0 = time.perf_counter()
+        parsed = bvh.parse_bvh(root / "beat" / "2" / f"{stem}.bvh")
+        t1 = time.perf_counter()
+        mats, _, _ = bvh.joint_matrices(parsed)
+        t2 = time.perf_counter()
+        m32 = torch.from_numpy(mats.astype("float32"))
+        on_card = m32.cuda()
+        card_ms = cuda_ms(lambda: matrix_to_axis_angle(on_card), iters=10, warmup=2)
+        t3 = time.perf_counter()
+        for _ in range(3):
+            matrix_to_axis_angle(m32)
+        cpu_ms = (time.perf_counter() - t3) / 3 * 1e3
+        t4 = time.perf_counter()
+        poses, trans, fps = bvh.retargeted_bvh_to_smplx(parsed, "cuda")
+        t5 = time.perf_counter()
+        bvh.write_smplx_take(root / "split" / f"{stem}.npz", poses, trans, fps, "scott")
+        t6 = time.perf_counter()
+        rows[stem] = {"frames": parsed.num_frames, "parse_s": t1 - t0, "euler_host_s": t2 - t1,
+                      "axis_angle_card_ms": card_ms, "axis_angle_cpu_ms": cpu_ms,
+                      "conversion_with_copies_s": t5 - t4, "write_s": t6 - t5}
+    return rows
+
+
+def phase_host_tasks(root: Path) -> dict:
+    """bvh2smplx_ over a 60 s and a 10 min SMPL-X-rig take and a raw 75-joint
+    BEAT skeleton, on the card and with --device cpu (the same counts, poses
+    within BVH_AA_TOL, the rest equal); render_gt and render_baselines over
+    the converted takes, their window npz trees card against CPU file by file;
+    mux_audio and concat_grid on real ffmpeg where it is installed;
+    blender_setup without Blender exits 1 naming it; infer_gesture at the
+    flagship widths through the CLI with the render wiring (one render and one
+    mux per window, 12 K1 and 1 K3 per wav_to_motion), against the same run
+    without a blender on PATH."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from amuse_tpu_torch.audio.wavio import save_wav
+    from amuse_tpu_torch.core.rotations import axis_angle_to_matrix
+    from amuse_tpu_torch.ops import attention, denoiser_kernel
+
+    t_start = time.perf_counter()
+    (root / "beat" / "2").mkdir(parents=True)
+    (root / "beat" / "9").mkdir(parents=True)
+    for seed, (stem, frames) in enumerate(BVH_TAKES.items()):
+        _write_rig(root / "beat" / "2" / f"{stem}.bvh", frames, seed)
+    _write_rig(root / "beat" / "9" / "9_miranda_0_9_9.bvh", 120, 9, root="Hips", joints=75)
+    rng = np.random.default_rng(3)
+    save_wav(root / "beat" / "2" / "2_scott_0_9_9.wav",
+             rng.normal(scale=0.05, size=60 * 16000).astype(np.float32))
+    bvh_mb = sum(p.stat().st_size for p in (root / "beat").rglob("*.bvh")) / 1e6
+    system_path = os.environ["PATH"]
+    bindir, stub_log = _stubs(root)
+    on_path = {b: shutil.which(b) is not None for b in ("blender", "ffmpeg")}
+    stub_path = f"{bindir}{os.pathsep}{system_path}"  # the stubs shadow real binaries
+    no_blender_path = os.pathsep.join(d for d in system_path.split(os.pathsep)
+                                      if not (Path(d) / "blender").exists())
+
+    # bvh2smplx_: the CLI on the card and on the CPU, then the split per take
+    seconds, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        cfg = {"data": {"data_root": str(root / "beat"), "mosh_root": str(root / f"mosh_{device}")},
+               "out_dir": str(root / "runs" / device)}
+        (root / f"{device}.json").write_text(json.dumps(cfg))
+        log = OUT / f"cli_bvh2smplx_{device}.log"
+        log.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        _with_path(no_blender_path, lambda: _run_cli(
+            ["--fn", "bvh2smplx_", "--cfg", str(root / f"{device}.json"), "--device", device],
+            log, root))
+        seconds[device] = time.perf_counter() - t0
+        m = re.search(r"converted (\d+), skipped (\d+)", log.read_text())
+        counts[device] = (int(m.group(1)), int(m.group(2)))
+        check("9_miranda_0_9_9.bvh: 75-joint BEAT skeleton; retarget needs Blender"
+              in log.read_text(), "the raw BEAT skeleton was not skipped with its reason")
+    check(counts["cuda"] == counts["cpu"] == (2, 1),
+          f"bvh2smplx_ converted/skipped {counts}, expected (2, 1) on both")
+    err = 0.0
+    for stem, frames in BVH_TAKES.items():
+        a, b = (np.load(root / f"mosh_{d}" / f"{stem}.npz") for d in ("cuda", "cpu"))
+        for k in ("trans", "gender", "betas", "mocap_frame_rate"):
+            check(np.array_equal(a[k], b[k]), f"bvh2smplx_ {stem}: {k} differs, card vs CPU")
+        check(a["poses"].shape == (frames, 55, 3) and float(a["mocap_frame_rate"]) == 31.0,
+              f"bvh2smplx_ {stem}: poses {a['poses'].shape}, fps {a['mocap_frame_rate']}")
+        rot = [axis_angle_to_matrix(torch.from_numpy(d["poses"])) for d in (a, b)]
+        err = max(err, max_err(*rot))
+    check(err <= BVH_AA_TOL, f"bvh2smplx_ poses, card vs CPU: {err} > {BVH_AA_TOL}")
+    split = _bvh_split(root)
+
+    # render_gt and render_baselines over the converted takes, through the stubs
+    method = root / "baselines" / "camn"
+    method.mkdir(parents=True)
+    d = np.load(root / "mosh_cuda" / "2_scott_0_9_9.npz")
+    np.savez(method / "2_scott_0_9_9.npz", poses=d["poses"][::-1].reshape(-1, 165),
+             trans=d["trans"])
+    render_s, trees, stub_calls = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        for task in ("render_gt", "render_baselines"):
+            cfg = {"data": {"data_root": str(root / "beat"), "mosh_root": str(root / "mosh_cuda"),
+                            "baselines_root": str(root / "baselines")},
+                   "out_dir": str(root / task / device)}
+            (root / f"{task}.json").write_text(json.dumps(cfg))
+            stub_log.unlink(missing_ok=True)
+            t0 = time.perf_counter()
+            _with_path(stub_path, lambda: _run_cli(
+                ["--fn", task, "--cfg", str(root / f"{task}.json"), "--device", device],
+                OUT / f"cli_{task}.log", root))
+            render_s[f"{task}_{device}"] = time.perf_counter() - t0
+            (run,) = (root / task / device).iterdir()
+            trees[task, device] = {str(p.relative_to(run)): p for p in sorted(run.rglob("*.npz"))}
+            stub_calls[task, device] = stub_log.read_text().replace(str(run), "<run>")
+    for task in ("render_gt", "render_baselines"):
+        a, b = trees[task, "cuda"], trees[task, "cpu"]
+        check(list(a) == list(b) and a, f"{task}: the card's npz tree differs from the CPU's")
+        for rel in a:
+            check(all(np.array_equal(x, y) for x, y in zip(*(
+                [np.load(t[rel])[k] for k in ("poses", "trans", "betas", "mocap_frame_rate")]
+                for t in (a, b)))), f"{task}: {rel} differs, card vs CPU")
+        check(stub_calls[task, "cuda"] == stub_calls[task, "cpu"],
+              f"{task}: the renders asked for differ, card vs CPU")
+    gt_windows = sum(f // 300 for f in BVH_TAKES.values())
+    check(len(trees["render_gt", "cuda"]) == gt_windows,
+          f"render_gt wrote {len(trees['render_gt', 'cuda'])} windows, expected {gt_windows}")
+    for stem in BVH_TAKES:  # render_gt of each take alone, for its time
+        (root / "one" / stem).mkdir(parents=True)
+        (root / "one" / stem / f"{stem}.npz").symlink_to(root / "mosh_cuda" / f"{stem}.npz")
+        cfg = {"data": {"data_root": str(root / "beat"), "mosh_root": str(root / "one" / stem)},
+               "out_dir": str(root / "one" / "runs" / stem)}
+        (root / "one.json").write_text(json.dumps(cfg))
+        t0 = time.perf_counter()
+        _with_path(stub_path, lambda: _run_cli(["--fn", "render_gt", "--cfg", str(root / "one.json")],
+                                               OUT / "cli_render_gt.log", root))
+        render_s[f"render_gt_{stem}"] = time.perf_counter() - t0
+
+    # ffmpeg for real on lavfi clips, where it is installed
+    ffmpeg = {"on_path": on_path["ffmpeg"]}
+    if on_path["ffmpeg"]:
+        ffmpeg.update(_real_ffmpeg(root / "ffmpeg"))
+
+    # blender_setup with no Blender on PATH: its specified result is exit 1
+    log = OUT / "cli_blender_setup.log"
+    try:
+        _with_path(no_blender_path, lambda: _run_cli(
+            ["--fn", "blender_setup", "--cfg", str(root / "cuda.json")], log, root))
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    check(code == 1 and "blender executable 'blender' not found on PATH" in log.read_text(),
+          f"blender_setup without Blender exited {code}, not 1 with Blender named missing")
+
+    # infer_gesture at the flagship widths with the render wiring, against no blender
+    (root / "wavs").mkdir()
+    save_wav(root / "wavs" / "2_scott_0_9_9.wav",
+             rng.normal(scale=0.05, size=320000).astype(np.float32))
+    infer, launches = {}, {}
+    for mode, path in (("render_wiring", stub_path), ("no_blender", no_blender_path),
+                       ("render_wiring_2", stub_path)):
+        (root / "infer.json").write_text(json.dumps({"out_dir": str(root / "infer" / mode)}))
+        stub_log.unlink(missing_ok=True)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _with_path(path, lambda: _run_cli(
+            ["--fn", "infer_gesture", "--cfg", str(root / "infer.json"),
+             "--wav-dir", str(root / "wavs")], OUT / "cli_infer_render.log", root))
+        torch.cuda.synchronize()
+        infer[mode] = time.perf_counter() - t0
+        launches[mode] = {"attention_fwd": attention.mha.launches,
+                          "ddim_sampler": denoiser_kernel.ddim_sample_fused.launches}
+        calls = stub_log.read_text().splitlines() if stub_log.exists() else []
+        renders = [c for c in calls if c.startswith("blender")]
+        muxes = [c for c in calls if c.startswith("ffmpeg")]
+        want = (2, 2) if path == stub_path else (0, 0)
+        check((len(renders), len(muxes)) == want,
+              f"infer_gesture ({mode}): {len(renders)} renders, {len(muxes)} muxes, want {want}")
+        check(launches[mode] == {"attention_fwd": 12, "ddim_sampler": 1},
+              f"infer_gesture ({mode}) launched {launches[mode]}, expected 12 K1 and 1 K3")
+        if renders:
+            check("-ss 10.0 -t 10.0" in muxes[1], "the second window's audio is not at 10 s")
+    check(os.environ["PATH"] == system_path, "PATH was not restored")
+    row = {"phase": "host_tasks", "bvh_mb": bvh_mb,
+           "bvh2smplx": {"cli_s": seconds, "counts": counts, "max_abs_err": err,
+                         "tolerance": BVH_AA_TOL, "per_take": split},
+           "render_s": render_s, "render_gt_windows": gt_windows,
+           "blender": "stub", "blender_on_path": on_path["blender"], "ffmpeg": ffmpeg,
+           "blender_setup_exit": code, "infer_gesture_cli_s": infer,
+           "launches_per_infer_cli": launches["render_wiring"],
+           "seconds": time.perf_counter() - t_start}
+    emit(row)
+    return row
+
+
+def _real_ffmpeg(root: Path) -> dict:
+    """mux_audio and concat_grid on real ffmpeg over 2 s lavfi test clips:
+    the mux is cut to its 1 s audio slice, the 2-column grid is twice as wide."""
+    from amuse_tpu_torch.viz.export import concat_grid, mux_audio
+
+    root.mkdir()
+
+    def ff(*args):
+        r = subprocess.run(["ffmpeg", "-y", "-v", "error", *args], capture_output=True, text=True,
+                           timeout=120)
+        check(r.returncode == 0, f"ffmpeg {args}: {r.stderr[-500:]}")
+
+    def probe(p: Path) -> tuple:
+        r = subprocess.run(["ffmpeg", "-i", str(p)], capture_output=True, text=True, timeout=60)
+        dur = re.search(r"Duration: (\d+):(\d+):([\d.]+)", r.stderr)
+        size = re.search(r"Video: .*?(\d{2,5})x(\d{2,5})", r.stderr)
+        return (int(dur[1]) * 3600 + int(dur[2]) * 60 + float(dur[3]),
+                (int(size[1]), int(size[2])), p.stat().st_size)
+
+    for name in ("a", "b"):
+        ff("-f", "lavfi", "-i", "testsrc=duration=2:size=128x96:rate=30", "-c:v", "mpeg4",
+           str(root / f"{name}.mp4"))
+    ff("-f", "lavfi", "-i", "sine=frequency=440:duration=3", str(root / "a.wav"))
+    t0 = time.perf_counter()
+    check(mux_audio(root / "a.mp4", root / "a.wav", root / "muxed.mp4", offset=0.5, duration=1.0),
+          "mux_audio failed on real ffmpeg")
+    t1 = time.perf_counter()
+    check(concat_grid([root / "a.mp4", root / "b.mp4"], root / "grid.mp4", cols=2),
+          "concat_grid failed on real ffmpeg")
+    t2 = time.perf_counter()
+    muxed, grid = probe(root / "muxed.mp4"), probe(root / "grid.mp4")
+    check(abs(muxed[0] - 1.0) < 0.2 and muxed[1] == (128, 96) and muxed[2] > 0,
+          f"muxed clip: duration, size, bytes {muxed}")
+    check(abs(grid[0] - 2.0) < 0.2 and grid[1] == (256, 96) and grid[2] > 0,
+          f"grid: duration, size, bytes {grid}")
+    return {"mux_s": t1 - t0, "grid_s": t2 - t1, "muxed": muxed, "grid": grid}
+
+
+def run_host_tasks() -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        return phase_host_tasks(Path(tmp))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
                                                  "PyTorch/CUDA port on one NVIDIA GPU.")
@@ -2254,6 +2562,9 @@ def main(argv=None) -> int:
     parser.add_argument("--only-eval", action="store_true",
                         help="the same for eval_gesture at the flagship widths, the "
                              "embedder's train step and the native ABIN loader")
+    parser.add_argument("--only-host-tasks", action="store_true",
+                        help="the same for bvh2smplx_, render_gt, render_baselines, "
+                             "blender_setup and infer_gesture's render wiring")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -2274,6 +2585,10 @@ def main(argv=None) -> int:
     from amuse_tpu_torch.device import resolve_device
 
     resolve_device("cuda")  # TF32 off for matmuls and cuDNN
+    # the CPU references below: a process's first parallel float32 sqrt on the
+    # CPU can compute one worker's share imprecisely (seen with torch 2.13.0+cpu:
+    # one eighth of it off by up to 2.4e-4 relative), so one runs first
+    torch.ones(1 << 22).sqrt_()
     OUT.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
     smi = smi_line()
@@ -2282,7 +2597,7 @@ def main(argv=None) -> int:
     phase_build()
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
             or args.only_train_step or args.only_edit or args.only_prepare_data
-            or args.only_train_gesture or args.only_eval):
+            or args.only_train_gesture or args.only_eval or args.only_host_tasks):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -2300,6 +2615,8 @@ def main(argv=None) -> int:
             run_train_gesture()
         if args.only_eval:
             run_eval()
+        if args.only_host_tasks:
+            run_host_tasks()
         return 0
     k1_cases = phase_attention()
     k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
@@ -2314,6 +2631,7 @@ def main(argv=None) -> int:
     edit_rows = run_edit_and_prepare()
     lpdm = run_train_gesture()
     evals = run_eval()
+    host = run_host_tasks()
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/attention_fwd.cu",
@@ -2362,6 +2680,8 @@ def main(argv=None) -> int:
     kernels[1]["launches_eval_gesture"] = ev["k3_launches"]
     kernels[1]["launches_eval_gesture_per"] = f"evaluate_cache over {ev['windows']} windows"
     kernels[1]["eval_tail"] = ev["k3_tail"]
+    for i, name in ((0, "attention_fwd"), (1, "ddim_sampler")):
+        kernels[i]["launches_infer_cli_with_render_wiring"] = host["launches_per_infer_cli"][name]
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     (OUT / "kernels.json").write_text(json.dumps({"kernels": kernels, "nvidia_smi": smi,
                                                   "seconds": time.perf_counter() - t_start},

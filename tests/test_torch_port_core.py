@@ -225,7 +225,8 @@ class TestSchedulers:
 
 def test_port_imports_neither_jax_nor_amuse_tpu():
     """Import every module of amuse_tpu_torch in a fresh interpreter (the
-    evaluation modules and the native loader among them): no jax, and no
+    evaluation modules, the native loader and the host-side utilities among
+    them; the bpy scripts under viz/blender/ are no package): no jax, and no
     module named amuse_tpu or amuse_tpu.* (amuse_tpu_torch shares the prefix
     without the dot)."""
     code = (
@@ -237,9 +238,14 @@ def test_port_imports_neither_jax_nor_amuse_tpu():
         "       or k == 'amuse_tpu' or k.startswith('amuse_tpu.')]\n"
         "n = sum(k.startswith('amuse_tpu_torch') for k in sys.modules)\n"
         "need = ['amuse_tpu_torch.eval.' + m for m in ('metrics', 'embedder', 'runner')]\n"
+        "need += ['amuse_tpu_torch.data.' + m for m in ('bvh', 'motion_features', 'pymo_pipeline',\n"
+        "                                              'textgrid', 'facial', 'corpus')]\n"
+        "need += ['amuse_tpu_torch.viz.export', 'amuse_tpu_torch.viz.blender_setup',\n"
+        "         'amuse_tpu_torch.utils.profiling', 'amuse_tpu_torch.cluster.sweep']\n"
+        "bpy = [k for k in sys.modules if k in ('bpy', 'addon_utils')]\n"
         "missing = [m for m in need + ['amuse_tpu_torch.native.loader'] if m not in sys.modules]\n"
-        "print(n, bad, missing)\n"
-        "sys.exit(1 if bad or missing or n < 20 else 0)\n"
+        "print(n, bad, missing, bpy)\n"
+        "sys.exit(1 if bad or missing or bpy or n < 20 else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=300)

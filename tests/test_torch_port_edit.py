@@ -330,12 +330,17 @@ def test_cli_edit_gesture_matches_jax(pipes, tmp_path, monkeypatch, capsys):
            "test": {"emotion_control": True, "actors": ["scott"], "replication_times": 2}}
     (tmp_path / "port.json").write_text(json.dumps({**cfg, "out_dir": str(tmp_path / "port")}))
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("PATH", str(demo))  # neither Blender nor ffmpeg
     monkeypatch.setattr(jcli, "_make_pipeline", lambda cfg: jp)
     monkeypatch.setattr(cli, "_make_pipeline", lambda cfg, device: tp)
     jcli.task_edit_gesture(jload_config(None, {**cfg, "out_dir": str(tmp_path / "jax")}))
+    jout = capsys.readouterr().out
     cli.main(["--fn", "edit_gesture", "--cfg", str(tmp_path / "port.json"), "--device", "cpu"])
-    assert "rendering (Blender, ffmpeg) is not ported yet" in capsys.readouterr().out
+    out = capsys.readouterr().out
     (jrun,), (run,) = (tmp_path / "jax").iterdir(), (tmp_path / "port").iterdir()
+    # the same messages, and no video without the binaries
+    assert out.replace(str(run), "<run>") == jout.replace(str(jrun), "<run>")
+    assert not list(run.rglob("*.mp4")) and not list(jrun.rglob("*.mp4"))
     files = sorted(p.relative_to(run) for p in run.rglob("*.npz"))
     assert files == sorted(p.relative_to(jrun) for p in jrun.rglob("*.npz"))
     assert len(files) == 2 * (2 * 2 + 2) * 2  # reps x (2 sources x 2 variants + 2 demo) x 2

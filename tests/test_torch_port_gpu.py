@@ -21,6 +21,10 @@ def cuda():
         pytest.skip("needs a CUDA device (the port's kernels run on the H100)")
     from amuse_tpu_torch.device import resolve_device
 
+    # the CPU references: a process's first parallel float32 sqrt on the CPU can
+    # compute one worker's share imprecisely (seen with torch 2.13.0+cpu: one
+    # eighth of it off by up to 2.4e-4 relative), so one runs before them
+    torch.ones(1 << 22).sqrt_()
     return resolve_device("cuda")
 
 
@@ -976,3 +980,82 @@ def test_native_loader_batches_reach_the_card_intact(cuda, tmp_path):
     for a, b in zip(got, want):
         assert a.keys() == b.keys()
         assert all(torch.equal(a[k], torch.from_numpy(b[k])) for k in b)
+
+
+def _rig(path, joints: int, order: str, frames: int, seed: int, root: str = "pelvis"):
+    """A chain skeleton with random Euler angles, written as BVH."""
+    import numpy as np
+
+    from amuse_tpu_torch.data import bvh
+
+    rng = np.random.default_rng(seed)
+    rot = [f"{a}rotation" for a in order]
+    js = [bvh.BvhJoint(root, -1, np.zeros(3), ["Xposition", "Yposition", "Zposition", *rot])]
+    js += [bvh.BvhJoint(f"j{i}", i - 1, rng.normal(scale=10, size=3), list(rot))
+           for i in range(1, joints)]
+    data = rng.uniform(-180, 180, size=(frames, 6 + 3 * (joints - 1)))
+    bvh.write_bvh(path, bvh.BvhData(js, data, 0.033333))
+
+
+@pytest.mark.parametrize("order", ["ZXY", "ZYX"])
+def test_bvh_to_axis_angle_on_the_card_matches_cpu(cuda, tmp_path, order):
+    """The axis-angle conversion of 3,000 frames x 55 joints on the card
+    against the CPU, through the rotation matrices (atol 1e-5, float32)."""
+    from amuse_tpu_torch.core.rotations import axis_angle_to_matrix
+    from amuse_tpu_torch.data import bvh
+
+    _rig(tmp_path / "a.bvh", 55, order, 3000, seed=1)
+    parsed = bvh.parse_bvh(tmp_path / "a.bvh")
+    (card, trans, names), (cpu, ctrans, cnames) = (bvh.bvh_to_axis_angle(parsed, d)
+                                                   for d in (cuda, "cpu"))
+    assert card.shape == (3000, 55, 3) and names == cnames and (trans == ctrans).all()
+    mats = [axis_angle_to_matrix(torch.from_numpy(x).double()) for x in (card, cpu)]
+    torch.testing.assert_close(mats[0], mats[1], atol=1e-5, rtol=0)
+
+
+def test_host_task_clis_on_the_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """bvh2smplx_ (two SMPL-X rigs, a raw skeleton skipped), then render_gt
+    and render_baselines over its output, without Blender, on the card and
+    with --device cpu: the same npz trees, poses within 1e-5 through their
+    rotation matrices, every other array equal."""
+    import json
+
+    import numpy as np
+
+    from amuse_tpu_torch.cli import main as cli
+    from amuse_tpu_torch.core.rotations import axis_angle_to_matrix
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    for sub in ("2", "9"):
+        (tmp_path / "beat" / sub).mkdir(parents=True)
+    _rig(tmp_path / "beat/2/2_scott_0_9_9.bvh", 55, "ZYX", 700, seed=2)
+    _rig(tmp_path / "beat/2/2_scott_0_10_10.bvh", 55, "ZYX", 310, seed=3)
+    _rig(tmp_path / "beat/9/9_miranda_0_9_9.bvh", 75, "ZXY", 5, seed=4, root="Hips")
+    (tmp_path / "baselines/camn").mkdir(parents=True)
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        cfg = {"data": {"data_root": str(tmp_path / "beat"), "mosh_root": str(tmp_path / dev),
+                        "baselines_root": str(tmp_path / "baselines")},
+               "out_dir": str(tmp_path / f"runs_{dev}")}
+        (tmp_path / f"{dev}.json").write_text(json.dumps(cfg))
+        for task in ("bvh2smplx_", "render_gt", "render_baselines"):
+            if task == "render_baselines":
+                d = np.load(tmp_path / dev / "2_scott_0_9_9.npz")
+                np.savez(tmp_path / "baselines/camn/2_scott_0_9_9.npz",
+                         poses=d["poses"].reshape(-1, 165)[::-1], trans=d["trans"])
+            cli.main(["--fn", task, "--cfg", str(tmp_path / f"{dev}.json"), "--device", dev])
+        trees[dev] = {str(p.relative_to(tmp_path / dev)): p
+                      for p in sorted((tmp_path / dev).rglob("*.npz"))}
+        # <run>/{GT,camn}/<take>/seq_<i>/<take>.npz of both tasks' runs, keyed without <run>
+        trees[dev].update({str(p.relative_to(p.parents[3])): p
+                           for p in sorted((tmp_path / f"runs_{dev}").rglob("*.npz"))})
+    assert list(trees["cuda"]) == list(trees["cpu"]) and len(trees["cuda"]) > 2
+    for rel, p in trees["cuda"].items():
+        a, b = np.load(p), np.load(trees["cpu"][rel])
+        assert a.files == b.files
+        for k in a.files:
+            if k == "poses":
+                ma, mb = (axis_angle_to_matrix(torch.from_numpy(x)) for x in (a[k], b[k]))
+                torch.testing.assert_close(ma, mb, atol=1e-5, rtol=0)
+            else:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{rel}:{k}")

@@ -208,8 +208,6 @@ class TestCli:
 
     def test_refusals(self, tmp_path, monkeypatch):
         wavs, cfg = self._tree(tmp_path)
-        with pytest.raises(SystemExit, match="not yet ported"):
-            cli.main(["--fn", "render_gt", "--cfg", str(cfg)])
         with pytest.raises(SystemExit):
             cli.main(["--fn", "no_such_task"])
         # a configured checkpoint that is no checkpoint raises, never random weights
