@@ -14,6 +14,14 @@ weights (out, in), separate q/k/v projections become the packed
 ``disentangler_from_jax`` maps the whole stage-1 ``ASTDisentangler`` tree
 (encoders with their label head, fusion, fusion_ablation, decoder). The maps
 are linear, so they carry gradient trees too.
+
+``legacy_from_jax`` maps the legacy zoo (``models/raw_diffusion.py``,
+``audio_legacy.py``, ``legacy_family.py``, ``actor.py``) by registry tag
+or class name: convolution kernels (*spatial, in, out) become (out, in,
+*spatial), BatchNorm scales and ``batch_stats`` become the weight and the
+running statistics, flax's ``OptimizedLSTMCell`` gates become
+``torch.nn.LSTM``'s stacked (i, f, g, o) weights, ``DenseGeneral``
+attention kernels are packed, and GPT-2's (out, in) kernels are kept.
 """
 
 from __future__ import annotations
@@ -170,3 +178,242 @@ def from_jax_params(tree) -> PipelineParams:
         ast.update(ast_encoder_from_jax(enc, f"{name}_enc"))
     return PipelineParams(ast=ast, prior=prior_from_jax(tree["prior"]),
                           denoiser=denoiser_from_jax(tree["denoiser"]))
+
+
+# ---- the legacy model zoo ---------------------------------------------------
+
+
+def _conv(p: Mapping, out: dict, prefix: str) -> None:
+    """flax ``Conv``/``ConvTranspose`` kernel (*spatial, in, out) -> torch (out, in, *spatial)."""
+    k = np.asarray(p["kernel"])
+    out[f"{prefix}.weight"] = _t(np.transpose(k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))))
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _embed(p: Mapping, out: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = _t(p["embedding"])
+
+
+def _batchnorm(p: Mapping, stats: Mapping, out: dict, prefix: str) -> None:
+    _layernorm(p, out, prefix)
+    out[f"{prefix}.running_mean"] = _t(stats["mean"])
+    out[f"{prefix}.running_var"] = _t(stats["var"])
+
+
+def _dense_general_mha(p: Mapping, out: dict, prefix: str) -> None:
+    """flax ``MultiHeadDotProductAttention`` (DenseGeneral kernels (in, heads,
+    hd) and (heads, hd, out)) -> the packed ``MultiHeadAttention`` keys."""
+    names = ("query", "key", "value")
+    w = [np.asarray(p[n]["kernel"]) for n in names]
+    out[f"{prefix}.in_proj_weight"] = _t(np.concatenate([x.reshape(x.shape[0], -1).T for x in w]))
+    out[f"{prefix}.in_proj_bias"] = _t(np.concatenate([np.asarray(p[n]["bias"]).reshape(-1)
+                                                        for n in names]))
+    k = np.asarray(p["out"]["kernel"])
+    out[f"{prefix}.out_proj.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
+    out[f"{prefix}.out_proj.bias"] = _t(p["out"]["bias"])
+
+
+def _numbered(p: Mapping, stem: str) -> int:
+    return sum(1 for k in p if k.startswith(stem) and k[len(stem):].isdigit())
+
+
+def _raw_denoiser(p, s, out, pre):
+    _linear(p["pose_embd"], out, f"{pre}pose_embd")
+    _linear(p["time_mlp"]["linear_1"], out, f"{pre}time_mlp.linear_1")
+    _linear(p["time_mlp"]["linear_2"], out, f"{pre}time_mlp.linear_2")
+    for name in ("proj_con", "proj_emo"):
+        if name in p:
+            _linear(p[name], out, f"{pre}{name}")
+    out[f"{pre}pos.pe"] = _pos(p["pos"]["pe"])
+    for i in range(_numbered(p, "layer_")):
+        _layer(p[f"layer_{i}"], out, f"{pre}layers.{i}")
+    _linear(p["pose_proj"], out, f"{pre}pose_proj")
+
+
+def _conv_encoder(p, s, out, pre):
+    for i in range(_numbered(p, "conv_")):
+        _conv(p[f"conv_{i}"], out, f"{pre}convs.{i}")
+    _linear(p["head"], out, f"{pre}head")
+
+
+def _conv_decoder(p, s, out, pre):
+    _linear(p["in"], out, f"{pre}inp")
+    for i in range(_numbered(p, "deconv_")):
+        _conv(p[f"deconv_{i}"], out, f"{pre}deconvs.{i}")
+    _conv(p["out"], out, f"{pre}out")
+
+
+def _audio_ae(p, s, out, pre):
+    """EmotionNet, AutoEncoder2x and AutoEncoder3x: whichever parts the tree holds."""
+    for name in ("enc", "con_enc", "emo_enc", "sty_enc"):
+        if name in p:
+            _conv_encoder(p[name], {}, out, f"{pre}{name}.")
+    if "dec" in p:
+        _conv_decoder(p["dec"], {}, out, f"{pre}dec.")
+    for name in ("cls", "emo_cls", "sty_cls"):
+        if name in p:
+            _linear(p[name], out, f"{pre}{name}")
+
+
+def _tcn(p, s, out, pre):
+    for i in range(_numbered(p, "block_")):
+        b, bp = p[f"block_{i}"], f"{pre}blocks.{i}"
+        for name in ("conv1", "conv2", "downsample"):
+            if name in b:
+                _conv(b[name], out, f"{bp}.{name}")
+
+
+def _basic_block(p, s, out, pre):
+    for conv, bn in (("conv1", "bn1"), ("conv2", "bn2"), ("down_conv", "down_bn")):
+        if conv in p:
+            _conv(p[conv], out, f"{pre}{conv}")
+            _batchnorm(p[bn], s[bn], out, f"{pre}{bn}")
+
+
+def _facenet(p, s, out, pre):
+    for i in range(_numbered(p, "b")):
+        _basic_block(p[f"b{i}"], s[f"b{i}"], out, f"{pre}b{i}.")
+
+
+def _audio_net(p, s, out, pre):
+    if "tcn" in p:
+        _tcn(p["tcn"], {}, out, f"{pre}tcn.")
+    _linear(p["proj"], out, f"{pre}proj")
+
+
+def _fusion(p, s, out, pre):
+    _linear(p["fc1"], out, f"{pre}fc1")
+    _linear(p["fc2"], out, f"{pre}fc2")
+
+
+def _emotion_addon(p, s, out, pre):
+    _embed(p["embed"], out, f"{pre}embed")
+    _linear(p["fc"], out, f"{pre}fc")
+    for i in range(_numbered(p, "conv")):
+        _conv(p[f"conv{i}"], out, f"{pre}convs.{i}")
+        _batchnorm(p[f"bn{i}"], s[f"bn{i}"], out, f"{pre}bns.{i}")
+
+
+def _speaker_addon(p, s, out, pre):
+    _embed(p["embed"], out, f"{pre}embed")
+    _linear(p["fc"], out, f"{pre}fc")
+
+
+def _lstm(p: Mapping, out: dict, prefix: str, i: int) -> None:
+    """flax ``OptimizedLSTMCell`` (input kernels ii/if/ig/io without bias,
+    hidden kernels hi/hf/hg/ho with it) -> layer i of ``torch.nn.LSTM``."""
+    gates = "ifgo"
+    out[f"{prefix}.weight_ih_l{i}"] = _t(np.concatenate([np.asarray(p[f"i{g}"]["kernel"]).T
+                                                          for g in gates]))
+    out[f"{prefix}.weight_hh_l{i}"] = _t(np.concatenate([np.asarray(p[f"h{g}"]["kernel"]).T
+                                                          for g in gates]))
+    out[f"{prefix}.bias_hh_l{i}"] = _t(np.concatenate([np.asarray(p[f"h{g}"]["bias"])
+                                                        for g in gates]))
+    out[f"{prefix}.bias_ih_l{i}"] = torch.zeros_like(out[f"{prefix}.bias_hh_l{i}"])
+
+
+def _camn(p, s, out, pre):
+    _audio_net(p["audio_net"], {}, out, f"{pre}audio_net.")
+    if "txt_proj" in p:
+        _linear(p["txt_proj"], out, f"{pre}txt_proj")
+    if "emo_addon" in p:
+        _emotion_addon(p["emo_addon"], s["emo_addon"], out, f"{pre}emo_addon.")
+    if "spk_addon" in p:
+        _speaker_addon(p["spk_addon"], {}, out, f"{pre}spk_addon.")
+    _fusion(p["fusion"], {}, out, f"{pre}fusion.")
+    for i in range(_numbered(p, "OptimizedLSTMCell_")):
+        _lstm(p[f"OptimizedLSTMCell_{i}"], out, f"{pre}lstm", i)
+    _linear(p["head1"], out, f"{pre}head1")
+    _linear(p["head2"], out, f"{pre}head2")
+
+
+def _faceformer(p, s, out, pre):
+    _linear(p["audio_feature_map"], out, f"{pre}audio_feature_map")
+    _embed(p["obj_vector"], out, f"{pre}obj_vector")
+    if "emo_vector" in p:
+        _embed(p["emo_vector"], out, f"{pre}emo_vector")
+    _linear(p["vertice_map"], out, f"{pre}vertice_map")
+    for i in range(_numbered(p, "ln1_")):
+        lp = f"{pre}layers.{i}"
+        for name in ("ln1", "ln2", "ln3"):
+            _layernorm(p[f"{name}_{i}"], out, f"{lp}.{name}")
+        for name in ("self_qkv", "self_proj", "ff1", "ff2"):
+            _linear(p[f"{name}_{i}"], out, f"{lp}.{name}")
+        _dense_general_mha(p[f"cross_attn_{i}"], out, f"{lp}.cross_attn")
+    _linear(p["vertice_map_r"], out, f"{pre}vertice_map_r")
+
+
+def _text_encoder(p, s, out, pre):
+    """flax GPT-2 stores ``c_attn``/``c_proj``/``c_fc`` kernels (out, in): torch's layout."""
+    bb, bp = p["backbone"], f"{pre}backbone"
+    _embed(bb["wte"], out, f"{bp}.wte")
+    _embed(bb["wpe"], out, f"{bp}.wpe")
+    for i in range(len(bb["h"])):
+        h, hp = bb["h"][str(i)], f"{bp}.h.{i}"
+        _layernorm(h["ln_1"], out, f"{hp}.ln_1")
+        _layernorm(h["ln_2"], out, f"{hp}.ln_2")
+        for sub, name in (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc"),
+                          ("mlp", "c_proj")):
+            out[f"{hp}.{sub}.{name}.weight"] = _t(h[sub][name]["kernel"])
+            out[f"{hp}.{sub}.{name}.bias"] = _t(h[sub][name]["bias"])
+    _layernorm(bb["ln_f"], out, f"{bp}.ln_f")
+    _linear(p["proj"], out, f"{pre}proj")
+
+
+def _discriminator(p, s, out, pre):
+    for i in range(_numbered(p, "conv")):
+        _conv(p[f"conv{i}"], out, f"{pre}convs.{i}")
+    _linear(p["out"], out, f"{pre}out")
+
+
+def _actor(p, s, out, pre):
+    """ActorAE; its decoder exists in the flax tree only when init ran ``decode``."""
+    enc = p["encoder"]
+    _linear(enc["skel_embedding"], out, f"{pre}encoder.skel_embedding")
+    out[f"{pre}encoder.mu_query"] = _t(enc["mu_query"])
+    for i in range(_numbered(enc, "layer_")):
+        _layer(enc[f"layer_{i}"], out, f"{pre}encoder.layers.{i}")
+    if "decoder" in p:
+        dec = p["decoder"]
+        for i in range(_numbered(dec, "layer_")):
+            _layer(dec[f"layer_{i}"], out, f"{pre}decoder.layers.{i}")
+        _linear(dec["final"], out, f"{pre}decoder.final")
+    for name in ("cls_fc1", "cls_fc2", "cls_out"):
+        _linear(p[name], out, f"{pre}{name}")
+
+
+_LEGACY = {
+    # the registry's legacy tags
+    "diffusion": _raw_denoiser, "wav_mfcc": _audio_ae, "camn_lstm": _camn,
+    "faceformer": _faceformer, "txt_gpt2": _text_encoder, "discriminator": _discriminator,
+    "actor_ae": _actor,
+    # the members' parts, by class name
+    "RawPoseDenoiser": _raw_denoiser, "EmotionNet": _audio_ae, "AutoEncoder2x": _audio_ae,
+    "AutoEncoder3x": _audio_ae, "ConvEncoder": _conv_encoder, "ConvDecoder": _conv_decoder,
+    "TemporalConvNet": _tcn, "ConvBasicBlock": _basic_block, "FaceNet": _facenet,
+    "AudioNet": _audio_net, "FusionNet": _fusion, "EmotionAddon": _emotion_addon,
+    "SpeakerAddon": _speaker_addon, "CaMNPoseGenerator": _camn,
+    "FaceformerDecoder": _faceformer, "TextEncoder": _text_encoder,
+    "ConvDiscriminator": _discriminator, "ActorAE": _actor,
+}
+
+
+def legacy_from_jax(tag: str, variables: Mapping) -> dict:
+    """A legacy zoo member's flax variables -> the port's state dict.
+
+    ``tag``: a registry tag of the legacy family (``diffusion``, ``wav_mfcc``,
+    ``camn_lstm``, ``faceformer``, ``txt_gpt2``, ``discriminator``,
+    ``actor_ae``) or the class name of a member or part (``AutoEncoder2x``,
+    ``FaceNet``, ...). ``variables``: ``{"params": ..., "batch_stats": ...}``
+    as ``Module.init`` returns it, or the params tree alone (a
+    ``RawTrainState``'s ``params``), as numpy arrays. The BatchNorm running
+    statistics come from ``batch_stats``. Submodules that the flax tree does
+    not hold (flax creates them at their first call) are absent from the
+    result.
+    """
+    if tag not in _LEGACY:
+        raise KeyError(f"no legacy converter for {tag!r}; known: {sorted(_LEGACY)}")
+    params = variables["params"] if "params" in variables else variables
+    out: dict = {}
+    _LEGACY[tag](params, variables.get("batch_stats", {}), out, "")
+    return out

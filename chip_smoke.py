@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only-train-gesture  # build, then the three LPDM phases alone
     python3 chip_smoke.py --only-eval  # build, then eval_gesture, train_embedder, native loader
     python3 chip_smoke.py --only-host-tasks  # build, then bvh2smplx_, render tasks, blender_setup
+    python3 chip_smoke.py --only-legacy  # build, then the legacy zoo and MFCC + DTW alone
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -43,7 +44,13 @@ the kernels' launch counters that each went through its kernels:
     against CPU, ``mux_audio``/``concat_grid`` on real ffmpeg where it is
     installed, ``blender_setup`` without Blender, and ``infer_gesture`` at
     the flagship widths with its render wiring (recording stubs named
-    ``blender`` and ``ffmpeg``; K1, K3).
+    ``blender`` and ``ffmpeg``; K1, K3);
+  * the legacy zoo and MFCC + DTW: every member's forward and three
+    raw-diffusion train steps, both samplers, MFCC and DTW at small widths
+    on the card against the CPU; the raw-diffusion train step (batch 32),
+    its ancestral and DDIM samplers, MFCC over 32 clips of 10 s, DTW of a
+    10 s pair, and one forward of each member at its default widths (no
+    kernel of the port: the K1, K2 and K3 counters stay at 0).
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -2534,6 +2541,361 @@ def run_host_tasks() -> dict:
         return phase_host_tasks(Path(tmp))
 
 
+# the legacy zoo and MFCC + DTW (ROADMAP item 17): plain PyTorch, cuDNN and
+# cuBLAS; no kernel of the port lies on this path
+LEGACY_TOL = 1e-5  # float32 forwards and BatchNorm statistics, card against CPU,
+#                    of the CPU's largest magnitude (or 1)
+LEGACY_PARAM_TOL = 1e-6  # parameters after three raw train steps (lr 1e-4)
+# the key projections' biases: zero gradient in exact arithmetic, so Adam
+# moves them by +-lr per step on the sign of each device's rounding noise
+LEGACY_KEY_BIAS_TOL = 3 * 2 * 1e-4
+# MFCC coefficients of 100-500, cuFFT against pocketfft (reading on an H100: 4.6e-5)
+LEGACY_MFCC_TOL = 2e-4
+# accumulated DTW costs, of the largest (reading on an H100: 8.2e-8; the
+# pairwise distances come from a matmul over MFCC norms of ~1e5)
+LEGACY_DTW_RTOL = 1e-6
+LEGACY_BATCH = 32  # configs/train_gesture.json:6, the reference's diffusion batch
+SMALL_RAW = {"nfeats": 12, "latent_dim": 16, "ff_size": 32, "num_layers": 2, "num_heads": 2,
+             "cond_dim": 8, "window": 6, "dropout": 0.0}
+
+
+def _seeded(module, seed: int):
+    """Every parameter from a seeded CPU normal (std 0.2; norm scales around
+    1), so zero-initialised maps (Faceformer's output) are non-zero; eval mode."""
+    import torch
+
+    from amuse_tpu_torch.models.legacy_family import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    norms = {id(m.weight) for m in module.modules()
+             if isinstance(m, (torch.nn.LayerNorm, BatchNorm))}
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g) + (1.0 if id(p) in norms else 0.0))
+    return module.eval()
+
+
+def _flat(out) -> list:
+    """A forward's tensors in a fixed order (dicts by key, tuples in order)."""
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _flat(o)]
+    return [out]
+
+
+def _zoo(small: bool) -> dict:
+    """tag -> (module on the CPU with seeded weights, inputs on the CPU, call).
+
+    Small widths for the card-against-CPU check; else each member at its
+    default widths, batch LEGACY_BATCH, 300 frames, the text encoder at
+    GPT-2 small's widths over 64 tokens with left padding."""
+    import torch
+
+    from amuse_tpu_torch.models import actor, audio_legacy, legacy_family as lf, raw_diffusion
+
+    g = torch.Generator().manual_seed(7)
+    b, t = (4, 6) if small else (LEGACY_BATCH, 300)
+
+    def x(*shape):
+        return torch.randn(shape, generator=g)
+
+    def ids(high, *shape):
+        return torch.randint(0, high, shape, generator=g)
+
+    raw_cfg = (raw_diffusion.RawDenoiserConfig(**SMALL_RAW) if small
+               else raw_diffusion.RawDenoiserConfig())
+    audio_cfg = (audio_legacy.LegacyAudioConfig(channels=4, latent_dim=8) if small
+                 else audio_legacy.LegacyAudioConfig())
+    camn_cfg = (lf.CaMNConfig(nfeats=6, latent_dim=8, fusion_dim=8, num_layers=2, audio_dim=4,
+                              text_dim=3) if small else lf.CaMNConfig())
+    face_kw = (dict(n_face_feats=5, audio_dim=3, latent_dim=8, num_heads=2, ff_size=16,
+                    num_layers=2) if small else {})
+    actor_cfg = (actor.ActorConfig(njoints=2, nfeats=3, num_frames=t, latent_dim=8, ff_size=16,
+                                   num_layers=2, num_heads=2, dropout=0.0) if small
+                 else actor.ActorConfig(dropout=0.0))
+    gpt2 = None if small else lf.GPT2Config()
+    n_tok = 7 if small else 64
+    mask = torch.ones((b, n_tok), dtype=torch.long)
+    for i in range(b):  # left padding: position ids -1 on the padded tokens
+        mask[i, : int(torch.randint(0, n_tok // 2, (1,), generator=g))] = 0
+    face_t = 30 if small else t
+    camn_args = (x(b, t, camn_cfg.nfeats), x(b, t, camn_cfg.audio_dim), ids(8, b, t),
+                 ids(30, b, t))
+    if small:
+        camn_args += (x(b, t, 3),)
+    zoo = {
+        "diffusion": (raw_diffusion.RawPoseDenoiser(raw_cfg),
+                      (x(b, raw_cfg.window, raw_cfg.nfeats), ids(1000, b), x(b, raw_cfg.cond_dim),
+                       x(b, raw_cfg.cond_dim)), None),
+        "wav_mfcc": (audio_legacy.AutoEncoder3x(audio_cfg),
+                     (x(b, audio_cfg.in_frames, audio_cfg.in_coeffs),), None),
+        "camn_lstm": (lf.CaMNPoseGenerator(camn_cfg), camn_args, None),
+        "faceformer": (lf.FaceformerDecoder(**face_kw),
+                       (x(b, face_t, face_kw.get("n_face_feats", 100)),
+                        x(b, face_t, face_kw.get("audio_dim", 256)), ids(30, b), ids(8, b)), None),
+        "txt_gpt2": (lf.TextEncoder(8 if small else 256, gpt2_config=gpt2),
+                     (ids(50257, b, n_tok), mask), None),
+        "discriminator": (lf.ConvDiscriminator(3, (4, 6)) if small else lf.ConvDiscriminator(),
+                          (x(b, 7 if small else t, 3 if small else 168),), None),
+        "actor_ae": (actor.ActorAE(actor_cfg),
+                     (x(b, t, actor_cfg.input_feats), ids(actor_cfg.num_classes, b)),
+                     lambda m, a: (lambda out: (out, m.decode(out["z"], t)))(m(*a))),
+    }
+    if small:  # the discriminator at an even length too
+        zoo["discriminator_even"] = (lf.ConvDiscriminator(3, (4, 6)), (x(b, 8, 3),), None)
+    return {k: (_seeded(m, i), a, c) for i, (k, (m, a, c)) in enumerate(zoo.items())}
+
+
+def _run_member(module, args, call):
+    import torch
+
+    with torch.no_grad():
+        return _flat(call(module, args) if call else module(*args))
+
+
+def _legacy_small_vs_cpu(smi: str) -> dict:
+    """Each zoo member's forward at small widths on the card against the
+    CPU, the CaMN generator's BatchNorm in train mode, three raw train steps
+    with injected draws, both samplers at T = 50 with injected noise."""
+    import copy
+
+    import torch
+
+    from amuse_tpu_torch.diffusion import gaussian as G
+    from amuse_tpu_torch.models.raw_diffusion import RawDenoiserConfig
+    from amuse_tpu_torch.train import raw_diffusion as tr
+
+    def rel(a, b):
+        return max_err(a.cpu(), b) / max(1.0, b.abs().max().item())
+
+    errs, zoo = {}, _zoo(small=True)
+    for tag, (module, args, call) in zoo.items():
+        want = _run_member(module, args, call)
+        got = _run_member(copy.deepcopy(module).cuda(), [a.cuda() for a in args], call)
+        errs[tag] = max(rel(a, b) for a, b in zip(got, want))
+    camn, camn_args, _ = zoo["camn_lstm"]
+    card = copy.deepcopy(camn).cuda().train()
+    with torch.no_grad():
+        got, want = card(*[a.cuda() for a in camn_args]), camn.train()(*camn_args)
+    errs["camn_lstm_train"] = max(
+        [rel(got, want)] + [rel(a.running_var, b.running_var)
+                            for a, b in zip(card.emo_addon.bns, camn.emo_addon.bns)]
+        + [rel(a.running_mean, b.running_mean)
+           for a, b in zip(card.emo_addon.bns, camn.emo_addon.bns)])
+
+    # three raw train steps, the draws made once on the CPU
+    cfg_m = RawDenoiserConfig(**SMALL_RAW)
+    cfg = tr.RawTrainConfig(num_timesteps=50)
+    states = {d: tr.init_state(0, cfg_m, cfg, d) for d in ("cpu", "cuda")}
+    step, sample_fn = tr.make_train_step(cfg_m, cfg)
+    g = torch.Generator().manual_seed(3)
+    batch = {"motion": 0.3 * torch.randn((8, 6, 12), generator=g),
+             "con": torch.randn((8, 8), generator=g), "emo": torch.randn((8, 8), generator=g)}
+    loss_err = 0.0
+    for i in range(3):
+        draw = tr.RawStepDraw(torch.randint(0, 50, (8,), generator=g),
+                              torch.randn((8, 6, 12), generator=g))
+        logs = {d: step(s, {k: v.to(d) for k, v in batch.items()}, None,
+                        tr.RawStepDraw(*(v.to(d) for v in draw)))
+                for d, s in states.items()}
+        loss_err = max(loss_err, abs(logs["cuda"]["loss"].item() / logs["cpu"]["loss"].item() - 1))
+    cpu_p = dict(states["cpu"].model.named_parameters())
+    param_err = key_bias_err = 0.0
+    d = cfg_m.latent_dim
+    for name, p in states["cuda"].model.named_parameters():
+        a, b = p.detach().cpu(), cpu_p[name].detach()
+        if name.endswith("in_proj_bias"):
+            key_bias_err = max(key_bias_err, max_err(a[d:2 * d], b[d:2 * d]))
+            a, b = torch.cat([a[:d], a[2 * d:]]), torch.cat([b[:d], b[2 * d:]])
+        param_err = max(param_err, max_err(a, b))
+    ss = [states[k].sampler_state for k in ("cuda", "cpu")]
+    sampler_state_err = rel(ss[0].loss_sq_history, ss[1].loss_sq_history)
+    check(torch.equal(ss[0].counts.cpu(), ss[1].counts), "loss-aware counts differ")
+    # both samplers at T = 50 from one injected draw
+    noise = torch.randn((51, 2, 6, 12), generator=g)
+    cond = {"con": batch["con"][:2], "emo": batch["emo"][:2]}
+    anc = {dev: sample_fn(states[dev].model, {k: v.to(dev) for k, v in cond.items()},
+                          noise=noise.to(dev)) for dev in ("cpu", "cuda")}
+    ddim = {}
+    for dev in ("cpu", "cuda"):
+        model, c = states[dev].model, {k: v.to(dev) for k, v in cond.items()}
+        gd = tr.make_diffusion(cfg, dev)
+        with torch.no_grad():
+            ddim[dev] = G.ddim_sample_loop(gd, lambda xt, tt: model(xt, tt, c["con"], c["emo"]),
+                                           (2, 6, 12), 10, noise=noise[0].to(dev))
+    row = {"phase": "legacy_small_vs_cpu", "nvidia_smi": smi, "forward_rel_err": errs,
+           "forward_tolerance": LEGACY_TOL, "train_loss_rel_err": loss_err,
+           "train_param_err": param_err, "train_param_tolerance": LEGACY_PARAM_TOL,
+           "train_key_bias_err": key_bias_err, "train_key_bias_tolerance": LEGACY_KEY_BIAS_TOL,
+           "sampler_state_rel_err": sampler_state_err,
+           "p_sample_rel_err": rel(anc["cuda"], anc["cpu"]),
+           "ddim_rel_err": rel(ddim["cuda"], ddim["cpu"])}
+    emit(row)
+    check(all(v <= LEGACY_TOL for v in errs.values()), f"zoo forwards, card vs CPU: {errs}")
+    check(loss_err <= LEGACY_TOL and sampler_state_err <= LEGACY_TOL,
+          f"raw train steps, card vs CPU: loss {loss_err}, sampler state {sampler_state_err}")
+    check(param_err <= LEGACY_PARAM_TOL and key_bias_err <= LEGACY_KEY_BIAS_TOL,
+          f"raw train step parameters, card vs CPU: {param_err}, key biases {key_bias_err}")
+    check(row["p_sample_rel_err"] <= LEGACY_TOL and row["ddim_rel_err"] <= LEGACY_TOL,
+          f"samplers, card vs CPU: {row['p_sample_rel_err']}, {row['ddim_rel_err']}")
+    return row
+
+
+def _legacy_train_and_samplers(smi: str, steps: int = 10) -> dict:
+    """The raw-diffusion train step at the RawDenoiserConfig defaults (168
+    features, 256 wide, ff 1024, 8 layers, 4 heads, 300 frames, cond 256),
+    batch 32, T = 1000 cosine, loss-aware timesteps: ``steps`` timed steps
+    (CUDA events, host enqueue), peak memory, one step traced for its
+    launches; then ``sample_fn``'s 1,000-step ancestral loop at N = 4 and
+    the 50-step DDIM loop at N = 4 and 32."""
+    import torch
+
+    from amuse_tpu_torch.diffusion import gaussian as G
+    from amuse_tpu_torch.models.raw_diffusion import RawDenoiserConfig
+    from amuse_tpu_torch.train import raw_diffusion as tr
+
+    cfg_m, cfg = RawDenoiserConfig(), tr.RawTrainConfig()
+    state = tr.init_state(0, cfg_m, cfg, "cuda")
+    step, sample_fn = tr.make_train_step(cfg_m, cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b = LEGACY_BATCH
+    batch = {"motion": 0.3 * torch.randn((b, cfg_m.window, cfg_m.nfeats), generator=g,
+                                         device="cuda"),
+             "con": torch.randn((b, cfg_m.cond_dim), generator=g, device="cuda"),
+             "emo": torch.randn((b, cfg_m.cond_dim), generator=g, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch, g)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    host_ms = []
+    events[0].record()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logs = step(state, batch, g)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(c) for a, c in zip(events, events[1:])]
+    loss = logs["loss"].item()
+    check(math.isfinite(loss), f"raw train step loss not finite: {loss}")
+    counts = int(state.sampler_state.counts.sum())
+    check(counts == (steps + 2) * b, f"the sampler state holds {counts} losses")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    traced = trace_call(lambda: step(state, batch, g), "raw_diffusion_step")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    emit({"phase": "legacy_raw_train_step", "nvidia_smi": smi, "batch": b, "params": n_params,
+          "steps": steps, "ms_per_step": sum(step_ms) / steps, "device_ms_each": step_ms,
+          "host_enqueue_ms_each": host_ms, "peak_gib": peak, "loss": loss,
+          "launches_per_step": traced["device_launches"],
+          "traced_wall_ms": traced["wall_ms"], "traced_device_busy_ms": traced["device_busy_ms"],
+          "top": traced["top"][:6]})
+
+    cond4 = {k: v[:4] for k, v in batch.items() if k != "motion"}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    x = sample_fn(state.model, cond4, g)
+    end.record()
+    torch.cuda.synchronize()
+    anc_wall = (time.perf_counter() - t0) * 1e3
+    check(x.shape == (4, cfg_m.window, cfg_m.nfeats) and bool(torch.isfinite(x).all()),
+          "ancestral samples")
+    gd = tr.make_diffusion(cfg, "cuda")
+    ddim = {}
+    for n in (4, 32):
+        con, emo = batch["con"][:n], batch["emo"][:n]
+
+        def run():
+            with torch.no_grad():
+                return G.ddim_sample_loop(gd, lambda xt, tt: state.model(xt, tt, con, emo),
+                                          (n, cfg_m.window, cfg_m.nfeats), 50, g)
+
+        check(bool(torch.isfinite(run()).all()), f"DDIM samples at N = {n}")
+        ms = cuda_ms(run, iters=3, warmup=1)
+        ddim[n] = {"ms": ms, "ms_per_window": ms / n}
+    row = {"phase": "legacy_samplers", "nvidia_smi": smi,
+           "ancestral_n4": {"steps": cfg.num_timesteps, "ms": start.elapsed_time(end),
+                            "wall_ms": anc_wall, "ms_per_window": start.elapsed_time(end) / 4,
+                            "ms_per_step": start.elapsed_time(end) / cfg.num_timesteps},
+           "ddim_50_steps": ddim}
+    emit(row)
+    return row
+
+
+def _legacy_mfcc_dtw(smi: str) -> dict:
+    """``mfcc`` over 32 clips of 10 s on the card (and 4 of them against the
+    CPU), ``dtw_cost`` for one 10 s pair on the card and on the CPU."""
+    import torch
+
+    from amuse_tpu_torch.audio import mfcc as M
+
+    g = torch.Generator().manual_seed(11)
+    n = 160_000
+    s = torch.arange(n) / 16_000.0
+    f0 = 100.0 + 300.0 * torch.rand((LEGACY_BATCH, 1), generator=g)
+    waves = (0.3 * torch.sin(2 * math.pi * f0 * s * (1 + 0.1 * torch.sin(2 * math.pi * 0.5 * s)))
+             + 0.02 * torch.randn((LEGACY_BATCH, n), generator=g))
+    waves[::4, n // 2:] = 0.0  # silent tails
+    card = waves.cuda()
+    out = M.mfcc(card)
+    check(out.shape == (LEGACY_BATCH, n // 128 + 1, 13) and bool(torch.isfinite(out).all()),
+          f"mfcc shape {tuple(out.shape)}")
+    mfcc_ms = cuda_ms(lambda: M.mfcc(card), iters=5, warmup=1)
+    mfcc_err = max_err(out[:4].cpu(), M.mfcc(waves[:4]))
+    a, b = out[0], out[1]
+    acc = M.dtw_cost(a, b)
+    dtw_ms = cuda_ms(lambda: M.dtw_cost(a, b), iters=3, warmup=1)
+    t0 = time.perf_counter()
+    ref = M.dtw_cost(a.cpu(), b.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    dtw_err = max_err(acc.cpu(), ref) / ref.abs().max().item()
+    row = {"phase": "legacy_mfcc_dtw", "nvidia_smi": smi, "clips": LEGACY_BATCH, "seconds": 10,
+           "mfcc_ms": mfcc_ms, "mfcc_ms_per_clip": mfcc_ms / LEGACY_BATCH,
+           "mfcc_max_abs_err_vs_cpu": mfcc_err, "mfcc_tolerance": LEGACY_MFCC_TOL,
+           "dtw_frames": [a.shape[0], b.shape[0]], "dtw_ms": dtw_ms, "dtw_cpu_ms": cpu_ms,
+           "dtw_rel_err_vs_cpu": dtw_err, "dtw_tolerance": LEGACY_DTW_RTOL}
+    emit(row)
+    check(mfcc_err <= LEGACY_MFCC_TOL, f"mfcc, card vs CPU: {mfcc_err}")
+    check(dtw_err <= LEGACY_DTW_RTOL, f"dtw_cost, card vs CPU: {dtw_err}")
+    return row
+
+
+def _legacy_forwards(smi: str) -> dict:
+    """One forward of each zoo member at its default widths (CUDA events)."""
+    import torch
+
+    rows = {}
+    for tag, (module, args, call) in _zoo(small=False).items():
+        module = module.cuda()
+        args = [a.cuda() for a in args]
+        out = _run_member(module, args, call)
+        check(all(bool(torch.isfinite(o).all()) for o in out), f"{tag}: non-finite output")
+        rows[tag] = {"ms": cuda_ms(lambda: _run_member(module, args, call), iters=5, warmup=1),
+                     "params": sum(p.numel() for p in module.parameters()),
+                     "out_shapes": [list(o.shape) for o in out]}
+        module.cpu()
+    emit({"phase": "legacy_zoo_forwards", "nvidia_smi": smi, "batch": LEGACY_BATCH,
+          "members": rows})
+    return rows
+
+
+def phase_legacy(smi: str) -> dict:
+    """The legacy zoo and MFCC + DTW, with the K1, K2 and K3 counters held at 0."""
+    from amuse_tpu_torch.ops import denoiser_kernel
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = {"small": _legacy_small_vs_cpu(smi), "train": _legacy_train_and_samplers(smi),
+            "mfcc_dtw": _legacy_mfcc_dtw(smi), "forwards": _legacy_forwards(smi)}
+    counts = {**_launch_counts(), "ddim_sampler": denoiser_kernel.ddim_sample_fused.launches}
+    emit({"phase": "legacy_kernel_launches", "nvidia_smi": smi, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    check(not any(counts.values()), f"the legacy path launched the port's kernels: {counts}")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
                                                  "PyTorch/CUDA port on one NVIDIA GPU.")
@@ -2565,6 +2927,10 @@ def main(argv=None) -> int:
     parser.add_argument("--only-host-tasks", action="store_true",
                         help="the same for bvh2smplx_, render_gt, render_baselines, "
                              "blender_setup and infer_gesture's render wiring")
+    parser.add_argument("--only-legacy", action="store_true",
+                        help="the same for the legacy zoo and MFCC + DTW: small widths "
+                             "against the CPU, the raw-diffusion step and samplers, MFCC and "
+                             "DTW, every member's forward at its default widths")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -2597,7 +2963,8 @@ def main(argv=None) -> int:
     phase_build()
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
             or args.only_train_step or args.only_edit or args.only_prepare_data
-            or args.only_train_gesture or args.only_eval or args.only_host_tasks):
+            or args.only_train_gesture or args.only_eval or args.only_host_tasks
+            or args.only_legacy):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -2617,6 +2984,8 @@ def main(argv=None) -> int:
             run_eval()
         if args.only_host_tasks:
             run_host_tasks()
+        if args.only_legacy:
+            phase_legacy(smi)
         return 0
     k1_cases = phase_attention()
     k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
@@ -2632,6 +3001,7 @@ def main(argv=None) -> int:
     lpdm = run_train_gesture()
     evals = run_eval()
     host = run_host_tasks()
+    phase_legacy(smi)
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/attention_fwd.cu",

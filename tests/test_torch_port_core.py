@@ -225,23 +225,31 @@ class TestSchedulers:
 
 def test_port_imports_neither_jax_nor_amuse_tpu():
     """Import every module of amuse_tpu_torch in a fresh interpreter (the
-    evaluation modules, the native loader and the host-side utilities among
-    them; the bpy scripts under viz/blender/ are no package): no jax, and no
-    module named amuse_tpu or amuse_tpu.* (amuse_tpu_torch shares the prefix
-    without the dot)."""
+    evaluation modules, the native loader, the host-side utilities and the
+    legacy zoo among them, and every class the registry's lazy constructors
+    resolve; the bpy scripts under viz/blender/ are no package): no jax,
+    flax, optax, orbax or transformers, and no module named amuse_tpu or
+    amuse_tpu.* (amuse_tpu_torch shares the prefix without the dot)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import amuse_tpu_torch\n"
         "for m in pkgutil.walk_packages(amuse_tpu_torch.__path__, 'amuse_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k == 'amuse_tpu' or k.startswith('amuse_tpu.')]\n"
+        "from amuse_tpu_torch.models import registry\n"
+        "for tag in registry.REGISTRY:\n"
+        "    registry.get_model(tag)\n"
+        "banned = ('jax', 'flax', 'optax', 'orbax', 'transformers', 'amuse_tpu')\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in banned]\n"
         "n = sum(k.startswith('amuse_tpu_torch') for k in sys.modules)\n"
         "need = ['amuse_tpu_torch.eval.' + m for m in ('metrics', 'embedder', 'runner')]\n"
         "need += ['amuse_tpu_torch.data.' + m for m in ('bvh', 'motion_features', 'pymo_pipeline',\n"
         "                                              'textgrid', 'facial', 'corpus')]\n"
         "need += ['amuse_tpu_torch.viz.export', 'amuse_tpu_torch.viz.blender_setup',\n"
         "         'amuse_tpu_torch.utils.profiling', 'amuse_tpu_torch.cluster.sweep']\n"
+        "need += ['amuse_tpu_torch.models.' + m for m in ('raw_diffusion', 'audio_legacy',\n"
+        "                                                'legacy_family', 'actor', 'registry')]\n"
+        "need += ['amuse_tpu_torch.diffusion.gaussian', 'amuse_tpu_torch.train.raw_diffusion',\n"
+        "         'amuse_tpu_torch.audio.mfcc']\n"
         "bpy = [k for k in sys.modules if k in ('bpy', 'addon_utils')]\n"
         "missing = [m for m in need + ['amuse_tpu_torch.native.loader'] if m not in sys.modules]\n"
         "print(n, bad, missing, bpy)\n"

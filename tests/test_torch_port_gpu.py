@@ -1059,3 +1059,153 @@ def test_host_task_clis_on_the_card_match_cpu(cuda, tmp_path, monkeypatch):
                 torch.testing.assert_close(ma, mb, atol=1e-5, rtol=0)
             else:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=f"{rel}:{k}")
+
+
+# ---- the legacy zoo and MFCC + DTW: no kernel of the port, card against CPU ----
+# float32 with TF32 off: forwards within 1e-5 of the CPU's largest magnitude
+# (or 1; readings on an H100 to 7.5e-7); MFCC within 5e-4 (cuFFT against
+# pocketfft, coefficients of 100-500, near-floor bins of the silent tail;
+# reading 2.7e-4); DTW within 1e-6 of the largest cost (reading 1.1e-7)
+
+LEGACY_TOL = 1e-5
+MFCC_TOL, DTW_TOL = 5e-4, 1e-6
+
+
+def _seeded(module, seed):
+    from amuse_tpu_torch.models.legacy_family import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    norms = {id(m.weight) for m in module.modules()
+             if isinstance(m, (torch.nn.LayerNorm, BatchNorm))}
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g) + (1.0 if id(p) in norms else 0.0))
+    return module.eval()
+
+
+def _legacy_close(got, want):
+    flat = (lambda o: [o[k] for k in sorted(o)] if isinstance(o, dict)
+            else list(o) if isinstance(o, (tuple, list)) else [o])
+    for a, b in zip(flat(got), flat(want)):
+        if isinstance(a, (tuple, list, dict)):
+            _legacy_close(a, b)
+            continue
+        scale = max(1.0, b.abs().max().item())
+        assert (a.cpu() - b).abs().max().item() <= LEGACY_TOL * scale
+
+
+def _legacy_members():
+    from amuse_tpu_torch.models import actor, audio_legacy, legacy_family as lf, raw_diffusion
+
+    g = torch.Generator().manual_seed(0)
+    x = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    ids = lambda high, *s: torch.randint(0, high, s, generator=g)  # noqa: E731
+    return {
+        "diffusion": (raw_diffusion.RawPoseDenoiser(raw_diffusion.RawDenoiserConfig(
+            nfeats=12, latent_dim=16, ff_size=32, num_layers=2, num_heads=2, cond_dim=8,
+            window=6, dropout=0.0)), (x(3, 6, 12), ids(1000, 3), x(3, 8), x(3, 8))),
+        "wav_mfcc": (audio_legacy.AutoEncoder3x(audio_legacy.LegacyAudioConfig(
+            channels=4, latent_dim=8, in_coeffs=13)), (x(2, 64, 13),)),
+        "camn_lstm": (lf.CaMNPoseGenerator(lf.CaMNConfig(
+            nfeats=6, latent_dim=8, fusion_dim=8, num_layers=2, audio_dim=4, text_dim=3)),
+            (x(2, 9, 6), x(2, 9, 4), ids(8, 2, 9), ids(30, 2, 9), x(2, 9, 3))),
+        "faceformer": (lf.FaceformerDecoder(5, 3, 8, 2, 16, 2),
+                       (x(2, 30, 5), x(2, 30, 3), ids(30, 2), ids(8, 2))),
+        "discriminator": (lf.ConvDiscriminator(3, (4, 6)), (x(2, 7, 3),)),
+        "actor_ae": (actor.ActorAE(actor.ActorConfig(
+            njoints=2, nfeats=3, num_frames=5, latent_dim=8, ff_size=16, num_layers=2,
+            num_heads=2, dropout=0.0)), (x(2, 5, 6), ids(8, 2))),
+    }
+
+
+@pytest.mark.parametrize("tag", ["diffusion", "wav_mfcc", "camn_lstm", "faceformer",
+                                 "discriminator", "actor_ae"])
+def test_legacy_member_on_the_card_matches_cpu(cuda, tag):
+    import copy
+
+    module, args = _legacy_members()[tag]
+    module = _seeded(module, 1)
+    card = copy.deepcopy(module).to(cuda)
+    with torch.no_grad():
+        _legacy_close(card(*[a.to(cuda) for a in args]), module(*args))
+    if tag == "camn_lstm":  # BatchNorm in train mode: the output and the running statistics
+        with torch.no_grad():
+            _legacy_close(card.train()(*[a.to(cuda) for a in args]), module.train()(*args))
+        for a, b in zip(card.emo_addon.bns, module.emo_addon.bns):
+            _legacy_close((a.running_mean, a.running_var), (b.running_mean, b.running_var))
+
+
+def test_text_encoder_left_padding_on_the_card(cuda):
+    """Left padding gives position id -1, which must wrap to the last row on
+    the card too (an unwrapped -1 is a device-side assert there)."""
+    import copy
+
+    from amuse_tpu_torch.models.legacy_family import TextEncoder
+
+    module = _seeded(TextEncoder(latent_dim=8), 2)
+    ids = torch.randint(0, 50257, (3, 7), generator=torch.Generator().manual_seed(3))
+    mask = torch.tensor([[1] * 7, [0] * 3 + [1] * 4, [1] * 5 + [0] * 2])
+    card = copy.deepcopy(module).to(cuda)
+    with torch.no_grad():
+        out = card(ids.to(cuda), mask.to(cuda))
+        torch.cuda.synchronize()
+        _legacy_close(out, module(ids, mask))
+
+
+def test_raw_train_steps_and_samplers_on_the_card_match_cpu(cuda):
+    """Three raw-diffusion steps with injected draws (losses, parameters, the
+    key biases apart, the loss-aware state), then both samplers at T = 50."""
+    from amuse_tpu_torch.diffusion import gaussian as G
+    from amuse_tpu_torch.models.raw_diffusion import RawDenoiserConfig
+    from amuse_tpu_torch.train import raw_diffusion as tr
+
+    cfg_m = RawDenoiserConfig(nfeats=12, latent_dim=16, ff_size=32, num_layers=2, num_heads=2,
+                              cond_dim=8, window=6, dropout=0.0)
+    cfg = tr.RawTrainConfig(num_timesteps=50)
+    states = {d: tr.init_state(0, cfg_m, cfg, d) for d in ("cpu", cuda)}
+    step, sample_fn = tr.make_train_step(cfg_m, cfg)
+    g = torch.Generator().manual_seed(4)
+    batch = {"motion": 0.3 * torch.randn((8, 6, 12), generator=g),
+             "con": torch.randn((8, 8), generator=g), "emo": torch.randn((8, 8), generator=g)}
+    for _ in range(3):
+        draw = tr.RawStepDraw(torch.randint(0, 50, (8,), generator=g),
+                              torch.randn((8, 6, 12), generator=g))
+        logs = {d: step(s, {k: v.to(d) for k, v in batch.items()}, None,
+                        tr.RawStepDraw(*(v.to(d) for v in draw))) for d, s in states.items()}
+        assert abs(logs[cuda]["loss"].item() / logs["cpu"]["loss"].item() - 1) <= 1e-5
+    cpu_p = dict(states["cpu"].model.named_parameters())
+    for name, p in states[cuda].model.named_parameters():
+        a, b = p.detach().cpu(), cpu_p[name].detach()
+        if name.endswith("in_proj_bias"):  # the key bias: zero gradient, Adam moves it +-lr
+            assert (a[16:32] - b[16:32]).abs().max() <= 6e-4
+            a, b = torch.cat([a[:16], a[32:]]), torch.cat([b[:16], b[32:]])
+        assert (a - b).abs().max() <= 1e-6, name
+    assert torch.equal(states[cuda].sampler_state.counts.cpu(), states["cpu"].sampler_state.counts)
+    _legacy_close(states[cuda].sampler_state.loss_sq_history,
+                  states["cpu"].sampler_state.loss_sq_history)
+    noise = torch.randn((51, 2, 6, 12), generator=g)
+    cond = {"con": batch["con"][:2], "emo": batch["emo"][:2]}
+    out = {d: sample_fn(states[d].model, {k: v.to(d) for k, v in cond.items()},
+                        noise=noise.to(d)) for d in ("cpu", cuda)}
+    _legacy_close(out[cuda], out["cpu"])
+    for d in ("cpu", cuda):
+        model, c = states[d].model, {k: v.to(d) for k, v in cond.items()}
+        with torch.no_grad():
+            out[d] = G.ddim_sample_loop(tr.make_diffusion(cfg, d),
+                                        lambda xt, tt: model(xt, tt, c["con"], c["emo"]),
+                                        (2, 6, 12), 10, noise=noise[0].to(d))
+    _legacy_close(out[cuda], out["cpu"])
+
+
+def test_mfcc_and_dtw_on_the_card_match_cpu(cuda):
+    from amuse_tpu_torch.audio import mfcc as M
+
+    g = torch.Generator().manual_seed(5)
+    s = torch.arange(32_000) / 16_000.0
+    waves = 0.3 * torch.sin(2 * 3.14159 * 220.0 * s) + 0.02 * torch.randn((3, 32_000), generator=g)
+    waves[2, 16_000:] = 0.0  # a silent tail
+    got, want = M.mfcc(waves.to(cuda)), M.mfcc(waves)
+    mfcc_err = (got.cpu() - want).abs().max().item()
+    acc, ref = M.dtw_cost(want[0].to(cuda), want[2].to(cuda)), M.dtw_cost(want[0], want[2])
+    dtw_err = ((acc.cpu() - ref).abs().max() / ref.abs().max()).item()
+    assert mfcc_err <= MFCC_TOL and dtw_err <= DTW_TOL, (mfcc_err, dtw_err)
