@@ -124,6 +124,27 @@ def wav_chunk_to_fbank(chunk: torch.Tensor, normalized: bool = True) -> torch.Te
     return normalize(fb) if normalized else fb
 
 
+def make_sharded_fbank(mesh, device: str | torch.device = "cuda"):
+    """(N, 160000) numpy chunks -> (N, 1024, 128) numpy fbanks
+    (``wav_chunk_to_fbank`` on ``device``), sharded over the mesh's data
+    axis: the chunks padded with zeros to a multiple of it, this rank's slice
+    computed, every rank's gathered over the host group and the pad stripped
+    (``parallel.mesh.sharded_rows_fn``; one call on ``device`` for
+    ``mesh=None``). Each chunk is independent (per-frame DC removal, a
+    dataset-constant normalisation), so no other collective runs."""
+    from amuse_tpu_torch.device import resolve_device
+    from amuse_tpu_torch.parallel.mesh import sharded_rows_fn
+
+    device = resolve_device(device)
+
+    def fn(chunks: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            out = wav_chunk_to_fbank(torch.as_tensor(np.asarray(chunks, np.float32)).to(device))
+        return out.cpu().numpy()
+
+    return sharded_rows_fn(fn, mesh)
+
+
 def window_waveform(waveform: np.ndarray, reference_quirk: bool = False) -> np.ndarray:
     """Full-length mono waveform -> (n_chunks, 160000) of 10 s chunks.
 

@@ -27,12 +27,12 @@ up to 4 variants, else 4).
 dataset at ``data.stage1_dataset``, each skipped when already built.
 
 ``train_audio`` trains the stage-1 AST disentangler on the quad dataset at
-``data.stage1_dataset``, one device, and writes ``metrics.jsonl`` and a
+``data.stage1_dataset`` and writes ``metrics.jsonl`` and a
 checkpoint per epoch under ``<out_dir>/<timestamp>/`` unless ``debug``;
 ``resume=<checkpoint dir>`` continues a run.
 
 ``train_gesture`` trains the stage-2 motion prior and denoiser (LPDM) on the
-window cache at ``data.cache_dir``, one device, with the DDIM monitor (K3 on
+window cache at ``data.cache_dir``, with the DDIM monitor (K3 on
 the card) every ``gesture.monitor_every`` steps and the SMPL-X vertex
 monitors when ``data.smplx_model_dir/SMPLX_NEUTRAL.npz`` exists; it writes
 ``metrics.jsonl`` and a checkpoint every ``gesture.model_save_freq`` epochs,
@@ -67,6 +67,19 @@ Weights come from ``AMUSE_TPU_CKPT`` (and ``AMUSE_TPU_AST_CKPT``), read by
 ``utils/checkpoint_io.py``; with neither set they are random, seeded by
 ``cfg.seed``. The device defaults to ``cuda`` and every task fails without
 a GPU unless ``--device cpu`` is given.
+
+Data parallel: started by a launcher that sets ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` (the scripts
+``cluster/jobs.py`` renders), each process joins the group before any task
+(NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and
+``prepare_data``, ``train_audio`` and ``train_gesture`` run over the ranks
+as one process does over the same global batch: the batch is rounded up to
+a multiple of the world size (and clamped to the data), each rank steps on
+its rows with the gradients all-reduced, the frozen-AST and fbank passes
+are split by chunks, and rank 0 alone writes the run directory, the
+checkpoints, ``metrics.jsonl`` and the caches. The other tasks run whole
+on every rank, as in the JAX package. Without ``WORLD_SIZE`` no process
+group is made.
 """
 
 from __future__ import annotations
@@ -134,20 +147,44 @@ def _make_pipeline(cfg, device):
     )
 
 
-def _setup(cfg) -> Path:
+def _setup(cfg, mesh=None) -> Path:
+    """The run directory: named by rank 0 of a ``mesh`` (two ranks a second
+    apart would otherwise name two) and written by it alone."""
     from amuse_tpu_torch.cli.config import dump_config
+    from amuse_tpu_torch.parallel.mesh import broadcast_object, is_main
 
-    run_dir = Path(cfg.out_dir) / time.strftime("%Y%m%d-%H%M%S")
-    if not cfg.debug:
+    run_dir = Path(cfg.out_dir) / broadcast_object(time.strftime("%Y%m%d-%H%M%S"), mesh)
+    if not cfg.debug and is_main(mesh):
         run_dir.mkdir(parents=True, exist_ok=True)
         (run_dir / "experiment_args.json").write_text(dump_config(cfg))
     return run_dir
 
 
+def _world_batch(requested: int, n: int, world: int, what: str, tag: str) -> int:
+    """The global batch of a data-parallel task (JAX CLI's rule): rounded up to
+    a multiple of the world size, clamped to the largest multiple within the
+    ``n`` items of the data; raises when even one item per rank is missing."""
+    bsz = -(-max(requested, world) // world) * world
+    if world > 1 and bsz != requested:
+        print(f"[{tag}] batch_size {requested} -> {bsz} (multiple of {world} ranks)")
+    if n < bsz:  # else an epoch would take no step and checkpoint random weights
+        clamped = (n // world) * world
+        if clamped == 0:
+            raise RuntimeError(f"{what} has {n} items but the {world}-rank mesh needs at "
+                               f"least {world} per batch - nothing would train")
+        print(f"[{tag}] batch {bsz} > {what} {n}; clamped to {clamped}")
+        bsz = clamped
+    return bsz
+
+
 def task_prepare_data(cfg, device: torch.device):
     """Stage-2 window cache (MoSh motion + frozen-AST features) and the
-    stage-1 quad dataset; nothing is written when the data root is empty."""
+    stage-1 quad dataset; nothing is written when the data root is empty.
+    Over a mesh each rank computes its share of every take's chunks and
+    rank 0 writes."""
+    from amuse_tpu_torch.audio.fbank import make_sharded_fbank
     from amuse_tpu_torch.data import beat, stage1
+    from amuse_tpu_torch.parallel.mesh import barrier, current_mesh, is_main
 
     takes = beat.discover(Path(cfg.data.data_root), Path(cfg.data.mosh_root))
     subset = beat.stage2_subset(takes)
@@ -156,6 +193,7 @@ def task_prepare_data(cfg, device: torch.device):
         print(f"[prepare_data] WARNING: nothing under {cfg.data.data_root} - check "
               "data.data_root/data.mosh_root; not writing empty datasets")
         return
+    mesh = current_mesh()
     if not subset:
         # no 0-window manifest (it would short-circuit every later build); an
         # audio-only corpus is still a stage-1 corpus, so the quads still build
@@ -163,7 +201,7 @@ def task_prepare_data(cfg, device: torch.device):
               f"data.mosh_root ({cfg.data.mosh_root}); stage-2 cache not built "
               "(stage-1 dataset still builds)")
     else:
-        _build_stage2(cfg, subset, device)
+        _build_stage2(cfg, subset, device, mesh)
 
     out = Path(cfg.data.stage1_dataset)
     provenance = stage1.takes_provenance(takes)
@@ -171,31 +209,41 @@ def task_prepare_data(cfg, device: torch.device):
         print(f"[prepare_data] stage-1 dataset current, skipping -> {out} (identity-only "
               "check: delete the npz to force a rebuild after editing a wav/CSV in place)")
         return
-    per_take = stage1.fbanks_per_take(takes, stage1.device_fbank_fn(device))
-    train = stage1.build_quads(per_take, "train")
-    val = stage1.build_quads(per_take, "val")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    stage1.save_dataset(out, train, val, provenance)
-    print(f"[prepare_data] stage-1 quads: train {train['emo_id'].shape[0]}, "
-          f"val {val['emo_id'].shape[0]} -> {out}")
+    fbank_fn = make_sharded_fbank(mesh, device)
+    if not is_main(mesh):
+        # every rank computes its share of each take's chunks, but only rank 0
+        # keeps the gathered fbanks: a rank per GPU would otherwise hold the
+        # whole fbank bank once per GPU of the host
+        share = fbank_fn
+        fbank_fn = lambda chunks: share(chunks)[:0]  # noqa: E731
+    per_take = stage1.fbanks_per_take(takes, fbank_fn)
+    if is_main(mesh):
+        train = stage1.build_quads(per_take, "train")
+        val = stage1.build_quads(per_take, "val")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        stage1.save_dataset(out, train, val, provenance)
+        print(f"[prepare_data] stage-1 quads: train {train['emo_id'].shape[0]}, "
+              f"val {val['emo_id'].shape[0]} -> {out}")
+    barrier(mesh)
 
 
-def _build_stage2(cfg, subset, device):
-    """The stage-2 leg of prepare_data: one encode_audio call per take on one
-    device (the JAX CLI shards this pass over a mesh)."""
+def _build_stage2(cfg, subset, device, mesh=None):
+    """The stage-2 leg of prepare_data: one encode_audio call per take, over a
+    mesh each rank's share of its chunks (JAX: shard_map over the data axis);
+    rank 0 writes the cache, the others wait for it."""
     from amuse_tpu_torch.data import cache
+    from amuse_tpu_torch.parallel.mesh import barrier, is_main
 
-    pipe = _make_pipeline(cfg, device)
-
-    def encode(chunks):
-        return {k: v.cpu().numpy() for k, v in pipe.encode_audio(chunks).items()}
+    encode = cache.sharded_encoder(_make_pipeline(cfg, device), mesh)
 
     ast_source = os.environ.get("AMUSE_TPU_CKPT") or "random-weights"
     if ast_source == "random-weights":
         print("[prepare_data] WARNING: building AST features with RANDOM weights "
               "(set AMUSE_TPU_CKPT for real conditioning)")
     cache.build_stage2_cache(subset, Path(cfg.data.cache_dir), encode,
-                             window_frames=cfg.data.window_frames, ast_source=ast_source)
+                             window_frames=cfg.data.window_frames, ast_source=ast_source,
+                             write=is_main(mesh))
+    barrier(mesh)
 
 
 def _viz_kwargs(cfg) -> dict:
@@ -312,12 +360,22 @@ def task_train_audio(cfg, device: torch.device):
 
     from amuse_tpu_torch.data import stage1
     from amuse_tpu_torch.eval.classification import epoch_stats
+    from amuse_tpu_torch.parallel.mesh import (
+        GradSync,
+        current_mesh,
+        data_size,
+        is_main,
+        replicate,
+        shard_rows,
+    )
     from amuse_tpu_torch.train import audio as ta
     from amuse_tpu_torch.train.checkpoint import CheckpointManager, restore_train_state
     from amuse_tpu_torch.utils.logging import RunLogger
 
-    run_dir = _setup(cfg)
-    logger = RunLogger(None if cfg.debug else run_dir)
+    mesh = current_mesh()
+    world = data_size(mesh)
+    run_dir = _setup(cfg, mesh)
+    logger = RunLogger(None if cfg.debug or not is_main(mesh) else run_dir)
     a = cfg.audio
     tcfg = ta.AudioTrainConfig(
         learning_rate=a.learning_rate, weight_decay=a.weight_decay, beta1=a.beta1,
@@ -329,24 +387,24 @@ def task_train_audio(cfg, device: torch.device):
     train, val = stage1.load_dataset(Path(cfg.data.stage1_dataset))
     # the same AST config the inference pipeline builds from cfg
     _, _, ast_cfg = _model_cfgs(cfg)
-    bsz = max(1, a.batch_size)
     n_train = int(train["emo_id"].shape[0])
     if n_train == 0:
         raise RuntimeError("stage-1 dataset has no training quads - nothing would train")
-    if n_train < bsz:  # else an epoch would take no step and checkpoint random weights
-        print(f"[AST-T] batch {bsz} > dataset {n_train}; clamped to {n_train}")
-        bsz = n_train
+    bsz = _world_batch(a.batch_size, n_train, world, "dataset", "AST-T")
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    if ta.remat_needed(ast_cfg, bsz, dtype, device):
+    quads = bsz // world  # the remat decision is the rank's own (JAX: quads_per_device)
+    if ta.remat_needed(ast_cfg, quads, dtype, device):
         ast_cfg = dataclasses.replace(ast_cfg, remat=True)
-        print(f"[AST-T] {bsz} quads per step: remat enabled (without it a step would take "
-              f"~{ta.step_peak_bytes(ast_cfg, bsz, dtype) / 2**30:.1f} GiB, over 90% of the card)")
+        print(f"[AST-T] {quads} quads per step on each device: remat enabled (without it a "
+              f"step would take ~{ta.step_peak_bytes(ast_cfg, quads, dtype) / 2**30:.1f} GiB, "
+              "over 90% of the card)")
     state = ta.init_state(cfg.seed, tcfg, dtype, ast_cfg, device)
     start_epoch = 0
     if cfg.resume:
         state, start_epoch = restore_train_state(cfg.resume, state, "AST-T")
-    ckpt = None if cfg.debug else CheckpointManager(run_dir / "checkpoints")
-    step_fn, set_lr = ta.make_train_step(tcfg)
+    replicate([state.model], mesh)  # raises unless every rank holds rank 0's weights
+    ckpt = None if cfg.debug else CheckpointManager(run_dir / "checkpoints", mesh)
+    step_fn, set_lr = ta.make_train_step(tcfg, None if mesh is None else GradSync(mesh))
 
     @torch.no_grad()
     def validate() -> dict:
@@ -378,9 +436,10 @@ def task_train_audio(cfg, device: torch.device):
         rng = np.random.default_rng([cfg.seed, epoch])
         for i, batch in enumerate(stage1.batches(train, bsz, rng)):
             gen = ta.step_generator(cfg.seed, epoch, i, device)
-            logs = step_fn(state, ta.batch_to_device(batch, device), gen)
+            logs = step_fn(state, ta.batch_to_device(shard_rows(batch, mesh), device), gen)
         metrics = {f"train_{k}": float(v) for k, v in logs.items()}
-        metrics.update(validate())
+        if is_main(mesh):  # the replicated model: rank 0's stats are every rank's
+            metrics.update(validate())
         logger.log(epoch, metrics)
         print(f"[AST-T] epoch {epoch + 1}/{tcfg.epochs} ({time.time() - t0:.1f}s): "
               + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
@@ -390,7 +449,7 @@ def task_train_audio(cfg, device: torch.device):
 
 def task_train_gesture(cfg, device: torch.device):
     """Stage-2 LPDM joint training (reference: trainer.train_prior_latdiff_
-    forward_backward_v2), one device."""
+    forward_backward_v2)."""
     import dataclasses
 
     import numpy as np
@@ -398,14 +457,24 @@ def task_train_gesture(cfg, device: torch.device):
     from amuse_tpu_torch.core import smplx as smplx_mod
     from amuse_tpu_torch.data.cache import WindowCache, betas_for_actor_ids
     from amuse_tpu_torch.data.prefetch import prefetch_to_device
+    from amuse_tpu_torch.parallel.mesh import (
+        GradSync,
+        barrier,
+        current_mesh,
+        data_size,
+        is_main,
+        replicate,
+    )
     from amuse_tpu_torch.train import gesture as tg
     from amuse_tpu_torch.train.audio import step_generator
     from amuse_tpu_torch.train.checkpoint import CheckpointManager, restore_train_state
     from amuse_tpu_torch.utils.logging import RunLogger
 
     g = cfg.gesture
-    run_dir = _setup(cfg)
-    logger = RunLogger(None if cfg.debug else run_dir)
+    mesh = current_mesh()
+    world = data_size(mesh)
+    run_dir = _setup(cfg, mesh)
+    logger = RunLogger(None if cfg.debug or not is_main(mesh) else run_dir)
     tcfg = tg.GestureTrainConfig(
         learning_rate=g.learning_rate, batch_size=max(1, g.batch_size), epochs=g.epochs,
         num_inference_steps=g.num_inference_steps, monitor_every=max(1, g.monitor_every),
@@ -428,19 +497,22 @@ def task_train_gesture(cfg, device: torch.device):
     data = WindowCache(Path(cfg.data.cache_dir))
     if len(data) == 0:
         raise RuntimeError(f"window cache {cfg.data.cache_dir} is empty - nothing would train")
-    if len(data) < tcfg.batch_size:  # else an epoch would take no step
-        print(f"[LPDM-T] batch {tcfg.batch_size} > cache {len(data)}; clamped to {len(data)}")
-        tcfg = dataclasses.replace(tcfg, batch_size=len(data))
+    tcfg = dataclasses.replace(tcfg, batch_size=_world_batch(g.batch_size, len(data), world,
+                                                             "cache", "LPDM-T"))
     # two step functions: with the DDIM/vertex monitor (every monitor_every-th
     # step) and without; the monitors carry no gradient
-    step_mon = tg.make_train_step(prior_cfg, den_cfg, tcfg, smplx_model, with_monitor=True)
-    step_fast = (tg.make_train_step(prior_cfg, den_cfg, tcfg, smplx_model, with_monitor=False)
+    sync = None if mesh is None else GradSync(mesh)
+    step_mon = tg.make_train_step(prior_cfg, den_cfg, tcfg, smplx_model, with_monitor=True,
+                                  grad_sync=sync)
+    step_fast = (tg.make_train_step(prior_cfg, den_cfg, tcfg, smplx_model, with_monitor=False,
+                                    grad_sync=sync)
                  if tcfg.monitor_every > 1 else step_mon)
     state = tg.init_state(cfg.seed, prior_cfg, den_cfg, tcfg, device)
     start_epoch = 0
     if cfg.resume:
         state, start_epoch = restore_train_state(cfg.resume, state, "LPDM-T")
-    ckpt = None if cfg.debug else CheckpointManager(run_dir / "checkpoints")
+    replicate([state.prior, state.denoiser], mesh)  # raises unless the ranks agree
+    ckpt = None if cfg.debug else CheckpointManager(run_dir / "checkpoints", mesh)
 
     native = None
     if g.native_loader:  # a failed build raises; there is no fallback loader
@@ -448,15 +520,19 @@ def task_train_gesture(cfg, device: torch.device):
 
         abin = Path(cfg.data.cache_dir) / "train.abin"
         manifest = Path(cfg.data.cache_dir) / "manifest.json"
-        # a rebuilt or merged cache invalidates the file derived from it
-        if not abin.exists() or abin.stat().st_mtime < manifest.stat().st_mtime:
+        # a rebuilt or merged cache invalidates the file derived from it; rank 0
+        # alone converts (two ranks would race on one file), the others wait
+        stale = not abin.exists() or abin.stat().st_mtime < manifest.stat().st_mtime
+        if stale and is_main(mesh):
             native_mod.cache_to_abin(cfg.data.cache_dir, abin,
                                      fields=("motion", "actor_id", "con", "emo", "sty"))
+        barrier(mesh)
         native = native_mod.NativeWindowLoader(abin)
         print(f"[LPDM-T] native ABIN loader: {len(native)} windows")
 
     def host_batches(epoch):
-        # epoch-keyed shuffle: a resumed run sees the batch order of an unbroken one
+        # epoch-keyed shuffle: a resumed run sees the batch order of an unbroken
+        # one, and every rank the same global batches (it copies its own rows)
         if native is not None:
             batches = native.epoch(tcfg.batch_size, seed=cfg.seed * 100_003 + epoch)
         else:
@@ -467,7 +543,7 @@ def task_train_gesture(cfg, device: torch.device):
 
     for epoch in range(start_epoch, tcfg.epochs):
         t0, logs = time.time(), {}
-        for i, batch in enumerate(prefetch_to_device(host_batches(epoch), 2, device)):
+        for i, batch in enumerate(prefetch_to_device(host_batches(epoch), 2, device, mesh)):
             fn = step_mon if i % tcfg.monitor_every == 0 else step_fast
             logs = fn(state, batch, step_generator(cfg.seed, epoch, i, device))
         metrics = {f"train_{k}": float(v) for k, v in logs.items()}
@@ -812,6 +888,7 @@ TASKS = {
 def main(argv=None):
     from amuse_tpu_torch.cli.config import load_config, parse_cli_overrides
     from amuse_tpu_torch.device import resolve_device
+    from amuse_tpu_torch.parallel.mesh import initialize_distributed
 
     p = argparse.ArgumentParser(prog="amuse-tpu-torch")
     p.add_argument("--fn", required=True, choices=sorted([*TASKS, "infer_gesture"]))
@@ -821,11 +898,24 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     cfg = load_config(args.cfg, parse_cli_overrides(args.set))
-    device = resolve_device(args.device)
-    if args.fn == "infer_gesture":
-        task_infer_gesture(cfg, args.wav_dir, device)
+    # the launcher's environment (cluster/jobs.py) makes this process one rank
+    # of a group before any task, as the JAX CLI's multi-host bring-up; without
+    # it each process would train alone on the whole data
+    device = initialize_distributed(args.device)
+    if device:
+        world = torch.distributed.get_world_size()
+        print(f"[distributed] initialized: process {torch.distributed.get_rank()} of "
+              f"{world}, {world} devices total ({torch.distributed.get_backend()}, {device})")
     else:
-        TASKS[args.fn](cfg, device)
+        device = resolve_device(args.device)
+    try:
+        if args.fn == "infer_gesture":
+            task_infer_gesture(cfg, args.wav_dir, device)
+        else:
+            TASKS[args.fn](cfg, device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

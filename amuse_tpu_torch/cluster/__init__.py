@@ -1,1 +1,2 @@
-"""Hyper-parameter sweeps (the port's copy of amuse_tpu/cluster/sweep.py)."""
+"""Job launch scripts and hyper-parameter sweeps (the port's copies of
+amuse_tpu/cluster/jobs.py and sweep.py)."""

@@ -34,6 +34,19 @@ SHARD_WINDOWS = 256  # windows per shard
 FIELDS = ("motion", "actor_id", "emo_label", "audio", "con", "emo", "sty")
 
 
+def sharded_encoder(pipe, mesh=None):
+    """``pipe.encode_audio`` as ``build_stage2_cache``'s ``encode_audio_fn``
+    (numpy chunks in, numpy features out); with a ``mesh`` each rank encodes
+    its share of a take's chunks and gathers the rest (JAX: ``shard_map`` of
+    ``encode_audio_fn`` over the data axis, ``amuse_tpu/cli/main.py:171-190``)."""
+    from amuse_tpu_torch.parallel.mesh import sharded_rows_fn
+
+    def encode(chunks: np.ndarray) -> dict:
+        return {k: v.cpu().numpy() for k, v in pipe.encode_audio(chunks).items()}
+
+    return sharded_rows_fn(encode, mesh)
+
+
 def build_stage2_cache(
     takes: Sequence[beat_mod.Take],
     out_dir: Path,
@@ -41,10 +54,16 @@ def build_stage2_cache(
     window_frames: int = 300,
     progress: bool = True,
     ast_source: str = "",
+    write: bool = True,
 ) -> Path:
-    """Build the stage-2 window cache from MoSh takes and frozen-AST features."""
+    """Build the stage-2 window cache from MoSh takes and frozen-AST features.
+
+    ``write=False`` runs the same build and writes nothing: the data-parallel
+    ranks other than rank 0, whose ``encode_audio_fn`` computes their share
+    of each take's chunks and gathers the rest, while rank 0 writes."""
     out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if write:
+        out_dir.mkdir(parents=True, exist_ok=True)
     manifest_path = out_dir / "manifest.json"
     if manifest_path.exists():
         # the cached features are a function of the AST weights: a cache built
@@ -70,9 +89,10 @@ def build_stage2_cache(
         nonlocal records
         while records["motion"] and (final or len(records["motion"]) >= SHARD_WINDOWS):
             shard_dir = out_dir / f"shard_{len(shards):05d}"
-            shard_dir.mkdir(exist_ok=True)
-            for f in FIELDS:
-                np.save(shard_dir / f"{f}.npy", np.stack(records[f][:SHARD_WINDOWS]))
+            if write:
+                shard_dir.mkdir(exist_ok=True)
+                for f in FIELDS:
+                    np.save(shard_dir / f"{f}.npy", np.stack(records[f][:SHARD_WINDOWS]))
             shards.append(shard_dir.name)
             records = {f: records[f][SHARD_WINDOWS:] for f in FIELDS}
 
@@ -108,6 +128,8 @@ def build_stage2_cache(
               "written (fix data and re-run)")
         return out_dir
     flush(final=True)
+    if not write:
+        return out_dir
     manifest_path.write_text(json.dumps(
         {"num_windows": n, "shards": shards, "fields": list(FIELDS), "ast_source": ast_source},
         indent=1,

@@ -18,11 +18,15 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from amuse_tpu_torch.parallel.mesh import shard_rows
+
 
 def prefetch_to_device(iterator: Iterable, size: int = 2,
-                       device: str | torch.device = "cuda") -> Iterator[dict]:
+                       device: str | torch.device = "cuda", mesh=None) -> Iterator[dict]:
     """Yield batches (dicts of arrays) as dicts of tensors on ``device``,
-    ``size`` ahead of the consumer, in order.
+    ``size`` ahead of the consumer, in order. With a ``mesh`` each batch is a
+    global batch and only this rank's rows of it are copied
+    (``parallel.mesh.shard_rows``).
 
     An error of ``iterator`` is raised in the consumer. Abandonment-safe: if
     the consumer drops the generator mid-epoch, closing it sets a stop
@@ -38,6 +42,7 @@ def prefetch_to_device(iterator: Iterable, size: int = 2,
     err: list[BaseException] = []
 
     def transfer(batch: dict):
+        batch = shard_rows(batch, mesh)
         host = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
         if not on_cuda:
             return host, None

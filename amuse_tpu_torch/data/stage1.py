@@ -20,7 +20,6 @@ from pathlib import Path
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
-import torch
 
 from amuse_tpu_torch.audio import fbank as fb
 from amuse_tpu_torch.audio.wavio import load_wav_resampled
@@ -32,30 +31,17 @@ from amuse_tpu_torch.data.actors import (
     STAGE1_DROPPED_ACTORS,
     STAGE1_VAL_ACTORS,
 )
-from amuse_tpu_torch.device import resolve_device
-
-
-def device_fbank_fn(device: str | torch.device) -> Callable[[np.ndarray], np.ndarray]:
-    """(N, 160000) chunks -> (N, 1024, 128) normalised fbanks as numpy, one
-    ``wav_chunk_to_fbank`` call on ``device`` (CUDA without a GPU raises)."""
-    device = resolve_device(device)
-
-    def fn(chunks: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            out = fb.wav_chunk_to_fbank(torch.as_tensor(chunks).to(device))
-        return out.cpu().numpy()
-
-    return fn
 
 
 def fbanks_per_take(takes: Sequence[beat_mod.Take],
                     fbank_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
                     ) -> dict[tuple[int, str], dict]:
     """{(actor_id, take): {"fbanks": (C, 1024, 128), "emo": int}}, one
-    ``fbank_fn`` call per take (default: ``device_fbank_fn("cuda")``). Takes
-    without a wav or shorter than one 10 s chunk are left out: full-chunk
-    windowing and the fixed 1024-frame padding leave no shorter chunk to drop."""
-    fbank_fn = fbank_fn or device_fbank_fn("cuda")
+    ``fbank_fn`` call per take (default: ``make_sharded_fbank(None, "cuda")``,
+    one call on the card). Takes without a wav or shorter than one 10 s chunk
+    are left out: full-chunk windowing and the fixed 1024-frame padding leave
+    no shorter chunk to drop."""
+    fbank_fn = fbank_fn or fb.make_sharded_fbank(None, "cuda")
     out = {}
     for t in takes:
         if t.wav is None:

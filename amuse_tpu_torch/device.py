@@ -13,6 +13,8 @@ import torch
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """-> a checked ``torch.device``; CUDA requested without a GPU raises.
+    ``cuda:<i>`` names one card (a data-parallel rank's ``cuda:LOCAL_RANK``)
+    and raises when the process sees no card ``i``.
 
     Selecting CUDA sets ``torch.backends.cuda.matmul.allow_tf32 = False`` and
     ``torch.backends.cudnn.allow_tf32 = False`` for the process.
@@ -24,6 +26,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "device 'cuda' requested but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run the plain PyTorch path"
             )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"device {dev} requested but this process sees "
+                               f"{torch.cuda.device_count()} CUDA device(s)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":

@@ -19,6 +19,19 @@ The model computes in its ``dtype`` (bf16 on the main path) over float32
 master parameters. Randomness (augmentation, dropout) comes from one
 ``torch.Generator`` per step, seeded from (seed, epoch, step) by
 ``step_generator``, so a resumed run replays the same draws.
+
+Data parallel (``grad_sync``, ``parallel/mesh.py``): each rank's batch is its
+rows of the global batch, and the three encoders run on those rows only.
+The augmentation draws are made at the global batch's shape from the one
+generator on every rank, and each rank keeps its rows. The fusion and the
+decoder attend across the batch (the reference's batch-as-sequence), so
+each rank gathers the global (16, W B, 3 fd) swap stack, runs them on it
+with the dropout masks of the one generator (every rank draws what a single
+process draws), and keeps its rows of the reconstruction for its loss; the
+gather's backward returns each rank the gradient of its features summed
+over the ranks. A W-rank step is then the single-process step, dropout and
+augmentation included. The gradients are all-reduced between ``backward``
+and the optimizer's step, and the returned logs are the global batch's.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ import numpy as np
 import torch
 
 from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
+from amuse_tpu_torch.parallel.mesh import GradSync
 from amuse_tpu_torch.train import losses as L
 
 
@@ -132,7 +146,9 @@ def step_generator(seed: int, epoch: int, step: int,
 
 
 def spec_augment(generator: Optional[torch.Generator], fbank: torch.Tensor, freq_mask: int,
-                 time_mask: int, noise: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                 time_mask: int, noise: bool,
+                 keep: Optional[tuple[int, torch.Tensor]] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Train-time augmentation of (N, T, F) fbanks -> ``(target, model_input)``.
 
     Per member, as the JAX ``spec_augment`` and torchaudio draw them: a mask
@@ -140,25 +156,33 @@ def spec_augment(generator: Optional[torch.Generator], fbank: torch.Tensor, freq
     for frequency and then time; the masked fbank is the reconstruction
     target. With ``noise`` the model input adds uniform noise scaled by a
     per-member amplitude in [0, 1) / 10 and rolls it along time by a shift
-    in [-10, 10).
+    in [-10, 10). ``keep = (M, idx)`` draws for M members and gives member
+    ``idx[i]``'s draws to row i (a data-parallel rank's rows of the global
+    batch); by default the N rows are the N members.
     """
     n, t_len, f_len = fbank.shape
     dev = fbank.device
+    n_draw, idx = (n, None) if keep is None else keep
+
+    def pick(x: torch.Tensor) -> torch.Tensor:
+        return x if idx is None else x.index_select(0, idx)
 
     def band(length: int, mask: int) -> torch.Tensor:  # (n, length) True where masked
-        width = torch.randint(0, max(mask, 1), (n,), generator=generator, device=dev)
-        u = torch.rand(n, generator=generator, device=dev)
+        width = torch.randint(0, max(mask, 1), (n_draw,), generator=generator, device=dev)
+        u = torch.rand(n_draw, generator=generator, device=dev)
         start = (u * (length - width + 1)).floor().long()
-        idx = torch.arange(length, device=dev)
-        return (idx >= start[:, None]) & (idx < (start + width)[:, None])
+        width, start = pick(width), pick(start)
+        ar = torch.arange(length, device=dev)
+        return (ar >= start[:, None]) & (ar < (start + width)[:, None])
 
     masked = band(f_len, freq_mask)[:, None, :] | band(t_len, time_mask)[:, :, None]
     fbank = fbank.masked_fill(masked, 0.0)
     if not noise:
         return fbank, fbank
-    amp = torch.rand((n, 1, 1), generator=generator, device=dev)
-    noisy = fbank + torch.rand(fbank.shape, generator=generator, device=dev) * amp / 10.0
-    shift = torch.randint(-10, 10, (n,), generator=generator, device=dev)
+    amp = pick(torch.rand((n_draw, 1, 1), generator=generator, device=dev))
+    uniform = pick(torch.rand((n_draw, t_len, f_len), generator=generator, device=dev))
+    noisy = fbank + uniform * amp / 10.0
+    shift = pick(torch.randint(-10, 10, (n_draw,), generator=generator, device=dev))
     src = (torch.arange(t_len, device=dev)[None, :] - shift[:, None]) % t_len  # roll by shift
     return fbank, noisy.gather(1, src[:, :, None].expand(-1, -1, f_len))
 
@@ -180,24 +204,39 @@ def swap_groups(f_emo: torch.Tensor, f_sty: torch.Tensor, f_con: torch.Tensor) -
 
 def loss_fn(model: ASTDisentangler, batch: dict, cfg: AudioTrainConfig,
             generator: Optional[torch.Generator] = None,
-            augment: bool = True) -> tuple[torch.Tensor, dict]:
+            augment: bool = True,
+            grad_sync: Optional[GradSync] = None) -> tuple[torch.Tensor, dict]:
     """Stage-1 objective on one batch of device tensors -> (total, logs).
 
     ``batch``: fbanks (B, 4, T, F) float32 clean normalised quads [a1t1,
     a1t2, a2t1, a2t2]; emo_id, a1_id, a2_id (B,) 0-based labels. Dropout
-    follows ``model.training``.
+    follows ``model.training``. With ``grad_sync`` over W ranks the batch is
+    this rank's B of the global W B quads: the augmentation is drawn for the
+    global batch, and the fusion and decoder run on the global swap stack.
     """
     clean = batch["fbanks"]
     b, _, t_len, f_len = clean.shape
     quad = clean.transpose(0, 1).reshape(4 * b, t_len, f_len)  # member-major virtual batch
+    keep = None
+    if grad_sync is not None and grad_sync.size > 1:
+        # member m of local quad j is member m of global quad rank * b + j
+        big = b * grad_sync.size
+        ar = torch.arange(4, device=clean.device)[:, None] * big
+        keep = (4 * big, (ar + grad_sync.rank * b + torch.arange(b, device=clean.device))
+                .reshape(-1))
     if augment and (cfg.noise_aug or cfg.freq_mask or cfg.time_mask):
         target, flat = spec_augment(generator, quad, cfg.freq_mask, cfg.time_mask,
-                                    cfg.noise_aug)
+                                    cfg.noise_aug, keep)
     else:
         target = flat = quad
     enc = model.encode(flat, cfg.frame_based_feats)
     f_emo, f_sty, f_con = (enc[k]["feature"].view(4, b, -1) for k in ("emo", "sty", "con"))
-    recons = model.reconstruct(swap_groups(f_emo, f_sty, f_con), generator)  # (16, B, T, F)
+    stack = swap_groups(f_emo, f_sty, f_con)  # (16, B, 3 fd)
+    if keep is None:
+        recons = model.reconstruct(stack, generator)  # (16, B, T, F)
+    else:  # the global stack through fusion + decoder, this rank's rows kept
+        recons = model.reconstruct(grad_sync.gather(stack, dim=1),
+                                   generator)[:, grad_sync.rows(b)]
     return L.ast_swap_losses(
         recons, target.view(4, b, t_len, f_len), enc["emo"]["logits"].view(4, b, -1),
         enc["sty"]["logits"].view(4, b, -1), f_con,
@@ -212,22 +251,30 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def make_train_step(cfg: AudioTrainConfig = AudioTrainConfig()):
+def make_train_step(cfg: AudioTrainConfig = AudioTrainConfig(),
+                    grad_sync: Optional[GradSync] = None):
     """-> (train_step, set_lr).
 
     ``train_step(state, batch, generator, stochastic=True)`` runs one step in
     place and returns the logs (detached device tensors). ``stochastic=False``
     turns dropout and augmentation off (the comparison tests' switch).
-    ``set_lr(state, epoch)`` applies the MultiStepLR schedule.
+    ``set_lr(state, epoch)`` applies the MultiStepLR schedule. With
+    ``grad_sync`` the step is one rank's of a data-parallel step: ``batch``
+    holds its rows, the gradients are all-reduced before the optimizer's
+    step, and the logs are the global batch's.
     """
 
     def train_step(state: AudioTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    stochastic: bool = True) -> dict:
         state.model.train(stochastic)
-        total, logs = loss_fn(state.model, batch, cfg, generator, augment=stochastic)
+        total, logs = loss_fn(state.model, batch, cfg, generator, augment=stochastic,
+                              grad_sync=grad_sync)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if grad_sync is not None:
+            grad_sync.all_reduce(state.model.parameters())
+            logs = grad_sync.mean_logs(logs)
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in logs.items()}

@@ -4,7 +4,9 @@ Port of ``amuse_tpu/train/checkpoint.py`` on ``torch.save``: step ``s`` lives
 in ``<dir>/step_<s:08d>/state.pt`` beside ``metadata.json`` (``{"step",
 "metrics"}``), and "best" selection reads the metadata. The port cannot
 read the JAX package's orbax checkpoints (a ``state/`` directory); it
-raises saying so.
+raises saying so. In a data-parallel run (``mesh``) rank 0 alone writes and
+every rank waits at a barrier after each save, so no rank reads a
+half-written ``state.pt``; every rank restores from the same file.
 """
 
 from __future__ import annotations
@@ -15,23 +17,30 @@ from typing import Any, Optional
 
 import torch
 
+from amuse_tpu_torch.parallel.mesh import barrier, is_main
+
 
 class CheckpointManager:
     """Step-indexed checkpoints of state dicts + JSON metadata."""
 
-    def __init__(self, directory):
+    def __init__(self, directory, mesh=None):
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        if is_main(mesh):
+            self.directory.mkdir(parents=True, exist_ok=True)
 
     def _path(self, step: int) -> Path:
         return self.directory / f"step_{step:08d}"
 
     def save(self, step: int, state: dict, metrics: Optional[dict] = None) -> Path:
+        """Write ``state`` (rank 0 of a mesh only), then wait for every rank."""
         path = self._path(step)
-        path.mkdir(parents=True, exist_ok=True)
-        torch.save(state, path / "state.pt")
-        meta = {"step": int(step), "metrics": _jsonable(metrics or {})}
-        (path / "metadata.json").write_text(json.dumps(meta, indent=1))
+        if is_main(self.mesh):
+            path.mkdir(parents=True, exist_ok=True)
+            torch.save(state, path / "state.pt")
+            meta = {"step": int(step), "metrics": _jsonable(metrics or {})}
+            (path / "metadata.json").write_text(json.dumps(meta, indent=1))
+        barrier(self.mesh)
         return path
 
     def steps(self) -> list[int]:

@@ -19,6 +19,14 @@ Randomness comes from one ``torch.Generator`` per step on the step's device,
 seeded from (seed, epoch, step) by ``train.audio.step_generator``, so a
 resumed run replays the same draws: first the ``StepNoise`` draws, then the
 dropout masks in the order the layers run.
+
+Data parallel (``grad_sync``, ``parallel/mesh.py``): each rank's batch is its
+rows of the global batch. Every rank draws the global batch's ``StepNoise``
+from the one generator and keeps its rows, so at dropout 0 a W-rank step is
+the single-process step; the dropout masks are drawn at the local shape from
+a generator of the rank's own. K3 monitors the rank's own windows. The
+gradients are all-reduced between ``backward`` and the optimizer's step,
+and the returned logs are the global batch's.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from amuse_tpu_torch.diffusion.schedulers import DiffusionSchedule, add_noise, m
 from amuse_tpu_torch.models.denoiser import Denoiser, DenoiserConfig
 from amuse_tpu_torch.models.vae import MotionPrior, PriorConfig
 from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_fused
+from amuse_tpu_torch.parallel.mesh import GradSync
 from amuse_tpu_torch.train import losses as L
 
 
@@ -198,14 +207,17 @@ def make_train_step(prior_cfg: PriorConfig = PriorConfig(),
                     denoiser_cfg: DenoiserConfig = DenoiserConfig(),
                     cfg: GestureTrainConfig = GestureTrainConfig(),
                     smplx_model: Optional[smplx_mod.SmplxModel] = None,
-                    with_monitor: bool = True):
+                    with_monitor: bool = True, grad_sync: Optional[GradSync] = None):
     """-> ``train_step(state, batch, generator=None, stochastic=True, noise=None)``.
 
     One step in place; returns the logs (detached device tensors).
     ``stochastic=False`` turns dropout off; ``noise`` replaces the
     ``StepNoise`` draws (the comparison tests inject both). The vertex
     monitors run when ``cfg.vtex_displacement`` and ``smplx_model`` (on the
-    step's device) is given.
+    step's device) is given. With ``grad_sync`` the step is one rank's of a
+    data-parallel step: ``batch`` holds its rows, ``noise`` (drawn or given)
+    is the global batch's and the rank keeps its rows, the gradients are
+    all-reduced before the optimizer's step, and the logs are global.
     """
     schedule = make_schedule()
     do_vtex = with_monitor and cfg.vtex_displacement and smplx_model is not None
@@ -216,13 +228,25 @@ def make_train_step(prior_cfg: PriorConfig = PriorConfig(),
                    noise: Optional[StepNoise] = None) -> dict:
         state.prior.train(stochastic)
         state.denoiser.train(stochastic)
+        b = batch["motion"].shape[0]
+        world = 1 if grad_sync is None else grad_sync.size
         if noise is None:
-            noise = draw_step_noise(generator, batch["motion"].shape[0], prior_cfg, schedule,
+            noise = draw_step_noise(generator, b * world, prior_cfg, schedule,
                                     batch["motion"].device)
-        total, logs = loss_fn(state, batch, cfg, schedule, noise, generator, with_monitor,
+        dropout_gen = generator
+        if grad_sync is not None:
+            if noise.t.shape[0] != b * world:
+                raise ValueError(f"noise for {noise.t.shape[0]} rows; the global batch "
+                                 f"has {b * world}")
+            noise = StepNoise(*(x[grad_sync.rows(b)] for x in noise))
+            dropout_gen = grad_sync.generator(generator)
+        total, logs = loss_fn(state, batch, cfg, schedule, noise, dropout_gen, with_monitor,
                               smplx_model, soc)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if grad_sync is not None:
+            grad_sync.all_reduce([*state.prior.parameters(), *state.denoiser.parameters()])
+            logs = grad_sync.mean_logs(logs)
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in logs.items()}

@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only-eval  # build, then eval_gesture, train_embedder, native loader
     python3 chip_smoke.py --only-host-tasks  # build, then bvh2smplx_, render tasks, blender_setup
     python3 chip_smoke.py --only-legacy  # build, then the legacy zoo and MFCC + DTW alone
+    python3 chip_smoke.py --only-distributed  # build, then the data-parallel phases alone
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -50,7 +51,14 @@ the kernels' launch counters that each went through its kernels:
     on the card against the CPU; the raw-diffusion train step (batch 32),
     its ancestral and DDIM samplers, MFCC over 32 clips of 10 s, DTW of a
     10 s pair, and one forward of each member at its default widths (no
-    kernel of the port: the K1, K2 and K3 counters stay at 0).
+    kernel of the port: the K1, K2 and K3 counters stay at 0);
+  * data parallelism (``parallel/mesh.py``; the machine has one card): NCCL
+    at world size 1 in this process, the flagship stage-1 and LPDM steps
+    with and without the gradient sync (the sync the identity bit for bit,
+    its all-reduce timed; K1, K2, K3 counted), two gloo ranks sharing the
+    card against one process (the small LPDM and stage-1 steps, the sharded
+    fbank and ``encode_audio``), and the ``train_gesture`` CLI launched at
+    world size 1 through ``cluster/jobs.py`` against a plain run.
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -1640,7 +1648,7 @@ def phase_prepare_data(pipe, root: Path) -> dict:
     check(feat_err <= PREP_FEAT_TOL, f"cached features differ from encode_audio on the same "
                                      f"chunks by {feat_err} > {PREP_FEAT_TOL}")
     t0 = time.perf_counter()
-    per_take = stage1.fbanks_per_take(takes, stage1.device_fbank_fn("cuda"))
+    per_take = stage1.fbanks_per_take(takes, fbank.make_sharded_fbank(None, "cuda"))
     train = stage1.build_quads(per_take, "train")
     stage1_s = time.perf_counter() - t0
     check(train["emo_id"].shape[0] == EDIT_WINDOWS and train["fbank_bank"].shape
@@ -2896,6 +2904,448 @@ def phase_legacy(smi: str) -> dict:
     return rows
 
 
+# data parallelism (parallel/mesh.py): one card, so the NCCL path at world
+# size 1 in this process, two gloo ranks sharing the card, and the
+# train_gesture CLI launched through cluster/jobs.py at world size 1
+# two ranks against one process (tests/torch_port_dist.py's bounds): every
+# logged term of both steps; the first step's gradients, per parameter, of its
+# largest entry; the parameters after the first step where its gradient
+# exceeds DP_GRAD_FLOOR (Adam moves the others by a sign-like ~lr, and the
+# second step inherits that: its losses hold it), at least DP_COVERED of them
+# (an H100 held 46% of the stage-1 parameters over 1024x128 fbanks, where the
+# gradients are smaller than at the CPU tests' 64x32 and 59-84% are held)
+DP_LOSS_RTOL, DP_GRAD_REL = 1e-5, 1e-4
+DP_PARAM_ATOL, DP_GRAD_FLOOR, DP_COVERED = TRAIN_LR / 10, 1e-6, 0.25
+DP_FBANK_TOL = 1e-5  # sharded fbank / encode_audio against one call on the card
+DP_CLI_RTOL = 1e-6  # the world-1 CLI's logged losses against a plain run's
+DP_SMALL_B = 8  # the small LPDM step's global batch
+DP_CHUNKS = 6  # the sharded fbank's and encode's chunks
+
+
+def _dp_errors(got: dict, want: dict) -> dict:
+    """A rank's two steps against one process's: as tests/torch_port_dist.errors."""
+    import torch
+
+    loss = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-7) for k in w)
+            for g, w in zip(got["logs"], want["logs"])]
+    g0, w0 = got["grads"][0], want["grads"][0]
+    check(g0.keys() == w0.keys(), "the ranks' gradients cover other parameters")
+    grad = max(((g0[n] - w0[n]).abs().max() / w0[n].abs().max().clamp_min(1e-30)).item()
+               for n in w0)
+    param, covered = 0.0, 0
+    for n, p in want["params_1"].items():
+        if n not in w0:
+            continue
+        keep = w0[n].abs() > DP_GRAD_FLOOR
+        if keep.any():
+            param = max(param, (got["params_1"][n] - p).abs()[keep].max().item())
+        covered += int(keep.sum())
+    return {"loss_rel_err": loss, "grad_rel_err": grad, "param_1_max_abs_err": param,
+            "param_share_held": covered / sum(p.numel() for p in want["params_1"].values())}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _timed_ms(fn) -> float:
+    """Host ms of fn() to a synchronise."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _world1_case(name: str, state_s, state_u, params_of, make_step, batch, gen,
+                 want_counts: dict, steps: int = 2, timed: int = 3) -> dict:
+    """One flagship train step at world size 1 over NCCL. ``state_s`` steps
+    with the gradient sync (recorded: the gradients before and after it);
+    ``state_u``, a copy, takes the plain optimizer step on the same
+    gradients, so the check does not rest on the step's own determinism.
+    Then ms per step without and with the sync in turns (host clock to a
+    synchronise), launches counted, and the all-reduce alone on CUDA events."""
+    import torch
+
+    from amuse_tpu_torch.parallel import mesh as M
+
+    mesh = M.current_mesh()
+
+    class Recorded(M.GradSync):
+        def all_reduce(self, params):
+            params = list(params)
+            self.before = [None if p.grad is None else p.grad.detach().clone() for p in params]
+            super().all_reduce(params)
+            self.identity = all((b is None) == (p.grad is None)
+                                and (b is None or torch.equal(b, p.grad))
+                                for b, p in zip(self.before, params))
+
+    rec = Recorded(mesh)
+    step_rec = make_step(rec)
+    identity = []
+    for i in range(steps):
+        step_rec(state_s, batch, gen(i))
+        identity.append(rec.identity)
+        for p, g in zip(params_of(state_u), rec.before):
+            p.grad = g
+        state_u.optimizer.step()
+        state_u.step += 1
+        rec.before = None
+    equal = all(torch.equal(a, b) for a, b in zip(params_of(state_s), params_of(state_u)))
+    n_grads = sum(p.grad is not None for p in params_of(state_s))
+    grad_bytes = sum(p.grad.numel() * p.grad.element_size()
+                     for p in params_of(state_s) if p.grad is not None)
+    check(all(identity) and equal, f"{name}: the world-1 sync changed the gradients "
+          f"({identity}) or the parameters after {steps} steps (equal: {equal})")
+    plain, synced = make_step(None), make_step(M.GradSync(mesh))
+    ms = {"plain": [], "synced": []}
+    _reset_counts()
+    for kind in ("plain", "synced", "synced", "plain"):
+        fn, state = (plain, state_u) if kind == "plain" else (synced, state_s)
+        for i in range(timed):
+            ms[kind].append(_timed_ms(lambda: fn(state, batch, gen(100 + i))))
+    counts = {**_launch_counts(), "ddim_sampler": _sampler_launches()}
+    per_step = {k: v / (4 * timed) for k, v in counts.items()}
+    check(per_step == want_counts, f"{name}: launches per step {per_step}, expected {want_counts}")
+    grads = [p for p in params_of(state_s) if p.grad is not None]
+    ar_ms = cuda_ms(lambda: M.all_reduce_grads(grads, mesh), iters=5, warmup=1)
+    return {"params": sum(p.numel() for p in params_of(state_s)), "grads": n_grads,
+            "grad_gb": grad_bytes / 1e9, "buckets": len(M._buckets(grads, M.BUCKET_BYTES)),
+            "identity_each_step": identity, "params_bit_equal_after": steps,
+            "ms_per_step": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_each": ms,
+            "all_reduce_ms": ar_ms, "all_reduce_gb_per_s": grad_bytes / 1e9 / (ar_ms / 1e3),
+            "launches_per_step": per_step}
+
+
+def phase_distributed_world1() -> dict:
+    """(a) NCCL at world size 1: the launcher's environment set in this
+    process, ``initialize_distributed`` (env://), the flagship stage-1 step
+    (bf16, 1 quad, dropout and augmentation on) and the flagship LPDM step
+    (batch 32, the DDIM monitor every step) with and without the sync."""
+    import copy
+
+    import torch
+
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.parallel import mesh as M
+    from amuse_tpu_torch.train import audio as ta
+    from amuse_tpu_torch.train import gesture as tg
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        dev = M.initialize_distributed("cuda")
+        check(torch.distributed.get_backend() == "nccl" and dev == torch.device("cuda", 0),
+              f"world-1 bring-up: {torch.distributed.get_backend()} on {dev}")
+        init_s = time.perf_counter() - t0
+        cfg, ast_cfg = ta.AudioTrainConfig(), ASTConfig()
+        s = ta.init_state(0, cfg, torch.bfloat16, ast_cfg, "cuda")
+        model_u = copy.deepcopy(s.model)
+        u = ta.AudioTrainState(model_u, ta.make_optimizer(model_u, cfg))
+        stage1 = _world1_case(
+            "stage-1", s, u, lambda st: list(st.model.parameters()),
+            lambda sync: ta.make_train_step(cfg, sync)[0],
+            _train_batch(1, ast_cfg.input_tdim, ast_cfg.input_fdim, 1, torch.device("cuda")),
+            lambda i: ta.step_generator(0, 0, i, "cuda"),
+            {"attention_fwd": ast_cfg.depth, "attention_bwd": ast_cfg.depth, "ddim_sampler": 0})
+        del s, u, model_u
+        torch.cuda.empty_cache()
+        tcfg, prior_cfg, den_cfg = tg.GestureTrainConfig(), PriorConfig(), DenoiserConfig()
+        s = tg.init_state(0, prior_cfg, den_cfg, tcfg, "cuda")
+        prior_u, den_u = copy.deepcopy(s.prior), copy.deepcopy(s.denoiser)
+        u = tg.GestureTrainState(prior_u, den_u, tg.make_optimizer(prior_u, den_u, tcfg))
+        lpdm = _world1_case(
+            "LPDM", s, u, lambda st: [*st.prior.parameters(), *st.denoiser.parameters()],
+            lambda sync: tg.make_train_step(prior_cfg, den_cfg, tcfg, None, True, grad_sync=sync),
+            _lpdm_batch(LPDM_BATCH, prior_cfg.window, den_cfg.cond_dim, 1, torch.device("cuda")),
+            lambda i: ta.step_generator(0, 0, i, "cuda"),
+            {"attention_fwd": 0, "attention_bwd": 0, "ddim_sampler": 1})
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    row = {"phase": "distributed_world1_nccl", "init_s": init_s, "stage1": stage1, "lpdm": lpdm,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def _dp_lpdm(mesh, device, steps: int = 2) -> dict:
+    """Two small LPDM steps (SMALL_PRIOR/SMALL_DENOISER, dropout 0, the 50-step
+    monitor, no vertex monitors) over the global batch of DP_SMALL_B windows,
+    this rank's rows, the draws from the step's generator."""
+    import torch
+
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.parallel import mesh as M
+    from amuse_tpu_torch.train import gesture as tg
+    from amuse_tpu_torch.train.audio import step_generator
+
+    prior_cfg = PriorConfig(**SMALL_PRIOR, dropout=0.0)
+    den_cfg = DenoiserConfig(**SMALL_DENOISER, dropout=0.0)
+    tcfg = tg.GestureTrainConfig(learning_rate=TRAIN_LR)
+    state = tg.init_state(21, prior_cfg, den_cfg, tcfg, device)
+    M.replicate([state.prior, state.denoiser], mesh)
+    step = tg.make_train_step(prior_cfg, den_cfg, tcfg, None, True,
+                              grad_sync=None if mesh is None else M.GradSync(mesh))
+    batch = M.shard_rows(_lpdm_batch(DP_SMALL_B, prior_cfg.window, den_cfg.cond_dim, 3,
+                                     torch.device(device)), mesh)
+    _reset_counts()
+    t0, logs, grads = time.perf_counter(), [], []
+    for i in range(steps):
+        logs.append({k: v.item() for k, v in step(state, batch,
+                                                   step_generator(7, 0, i, device)).items()})
+        grads.append({f"{m}.{n}": p.grad.detach().cpu()
+                      for m, mod in (("prior", state.prior), ("denoiser", state.denoiser))
+                      for n, p in mod.named_parameters() if p.grad is not None})
+        if i == 0:
+            params_1 = {f"{m}.{n}": p.detach().cpu().clone()
+                        for m, mod in (("prior", state.prior), ("denoiser", state.denoiser))
+                        for n, p in mod.named_parameters()}
+    torch.cuda.synchronize()
+    return {"logs": logs, "grads": grads, "params_1": params_1, "s": time.perf_counter() - t0,
+            "rows": batch["motion"].shape[0],
+            "launches": {**_launch_counts(), "ddim_sampler": _sampler_launches()},
+            "params": {f"{m}.{n}": p.detach().cpu() for m, mod in (("prior", state.prior),
+                                                                   ("denoiser", state.denoiser))
+                       for n, p in mod.named_parameters()}}
+
+
+def _dp_stage1(mesh, device, steps: int = 2, quads: int = 2) -> dict:
+    """Two small stage-1 steps (SMALL_AST over the real 1024x128 fbank, fusion
+    width 64, float32, augmentation and dropout off) over ``quads`` global
+    quads, this rank's rows; the fusion and decoder on the gathered stack."""
+    import torch
+
+    from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
+    from amuse_tpu_torch.parallel import mesh as M
+    from amuse_tpu_torch.train import audio as ta
+
+    cfg = ta.AudioTrainConfig(learning_rate=TRAIN_LR)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        model = ASTDisentangler(ASTConfig(**SMALL_AST), fusion_dim=64).to(device)
+    state = ta.AudioTrainState(model, ta.make_optimizer(model, cfg))
+    M.replicate([model], mesh)
+    step, _ = ta.make_train_step(cfg, None if mesh is None else M.GradSync(mesh))
+    batch = M.shard_rows(_train_batch(quads, 1024, 128, 12, torch.device(device)), mesh)
+    _reset_counts()
+    t0, logs, grads = time.perf_counter(), [], []
+    for i in range(steps):
+        logs.append({k: v.item() for k, v in step(state, batch, None, stochastic=False).items()})
+        grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        if i == 0:
+            params_1 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    return {"logs": logs, "grads": grads, "params_1": params_1, "s": time.perf_counter() - t0,
+            "rows": batch["fbanks"].shape[0],
+            "launches": {**_launch_counts(), "ddim_sampler": _sampler_launches()},
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+
+
+def _dp_encode(mesh, device) -> dict:
+    """``make_sharded_fbank`` and the sharded ``encode_audio`` (SMALL_AST
+    encoders, random weights from a seed) over DP_CHUNKS chunks."""
+    import torch
+
+    from amuse_tpu_torch.audio.fbank import make_sharded_fbank
+    from amuse_tpu_torch.data.cache import sharded_encoder
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+
+    ast_cfg = ASTConfig(**SMALL_AST)
+    prior_cfg, den_cfg = PriorConfig(**SMALL_PRIOR), DenoiserConfig(**SMALL_DENOISER)
+    pipe = GesturePipeline(init_random_params(5, prior_cfg, den_cfg, ast_cfg), prior_cfg,
+                           den_cfg, ast_cfg, dtype=torch.float32, device=device)
+    chunks = _chunks(DP_CHUNKS, 6)
+    _reset_counts()
+    t0 = time.perf_counter()
+    fbanks = make_sharded_fbank(mesh, device)(chunks)
+    feats = sharded_encoder(pipe, mesh)(chunks)
+    return {"fbank": torch.from_numpy(fbanks), "s": time.perf_counter() - t0,
+            **{k: torch.from_numpy(v) for k, v in feats.items()},
+            "launches": {**_launch_counts(), "ddim_sampler": _sampler_launches()}}
+
+
+def _dp_suite(mesh, device) -> dict:
+    return {"lpdm": _dp_lpdm(mesh, device), "stage1": _dp_stage1(mesh, device),
+            "encode": _dp_encode(mesh, device)}
+
+
+def _gloo_rank(rank: int, world: int, init: str, out: str) -> None:
+    """A spawned rank of phase (b): gloo on the one card, the small suite."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0")
+    import torch
+
+    from amuse_tpu_torch.parallel import mesh as M
+
+    try:
+        dev = M.initialize_distributed("cuda:0", backend="gloo", init_method=f"file://{init}")
+        result = _dp_suite(M.make_mesh(), dev)
+        torch.save(result, Path(out) / f"rank{rank}.pt")
+    except BaseException:
+        (Path(out) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_distributed_gloo(world: int = 2) -> dict:
+    """(b) Two gloo ranks sharing the card, spawned after the kernels are
+    built: the small LPDM and stage-1 steps and the sharded fbank/encode,
+    against one process on the card at the same global batch. Their times
+    are two processes on one card, not a scaling number."""
+    import multiprocessing
+
+    import torch
+
+    tmp = tempfile.TemporaryDirectory()  # the ranks' parameters and gradients: ~280 MB
+    out = Path(tmp.name)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, world, str(out / "process_group"), str(out)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    errors = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+            errors.append(f"rank {r} did not finish in 600 s")
+        elif p.exitcode != 0:
+            err = out / f"rank{r}.err"
+            errors.append(err.read_text() if err.exists() else f"rank {r}: exit {p.exitcode}")
+    check(not errors, "gloo ranks on the card failed:\n" + "\n".join(errors))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(out / f"rank{r}.pt") for r in range(world)]
+    tmp.cleanup()
+    one = _dp_suite(None, "cuda")
+    row = {"phase": "distributed_gloo_2_ranks_one_card", "world": world, "spawn_and_run_s": ranks_s,
+           "note": "two processes share one card: times are not a scaling number"}
+    for part in ("lpdm", "stage1"):
+        a, b, w = ranks[0][part], ranks[1][part], one[part]
+        check(all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"]),
+              f"{part}: the ranks' parameters differ")
+        err = [_dp_errors(r[part], w) for r in ranks]
+        check(all(max(e["loss_rel_err"]) <= DP_LOSS_RTOL and e["grad_rel_err"] <= DP_GRAD_REL
+                  and e["param_1_max_abs_err"] <= DP_PARAM_ATOL
+                  and e["param_share_held"] >= DP_COVERED for e in err),
+              f"{part}: two ranks against one process: {err}")
+        row[part] = {"errors_per_rank": err, "loss_rtol": DP_LOSS_RTOL, "grad_rel": DP_GRAD_REL,
+                     "param_1_atol": DP_PARAM_ATOL, "grad_floor": DP_GRAD_FLOOR,
+                     "rows_per_rank": [r[part]["rows"] for r in ranks],
+                     "launches_per_rank": [r[part]["launches"] for r in ranks],
+                     "launches_one_process": w["launches"],
+                     "s_per_rank": [r[part]["s"] for r in ranks], "s_one_process": w["s"]}
+    check(all(r["lpdm"]["launches"]["ddim_sampler"] == 2 for r in ranks)
+          and all(r["stage1"]["launches"]["attention_fwd"] == 2 * SMALL_AST["depth"]
+                  and r["stage1"]["launches"]["attention_bwd"] == 2 * SMALL_AST["depth"]
+                  for r in ranks),
+          f"launches per rank: {[(r['lpdm']['launches'], r['stage1']['launches']) for r in ranks]}")
+    enc = {}
+    for k in ("fbank", "con", "emo", "sty"):
+        errs = [max_err(r["encode"][k], one["encode"][k]) for r in ranks]
+        enc[k] = {"max_abs_err": max(errs),
+                  "bytes_equal": all(torch.equal(r["encode"][k], one["encode"][k]) for r in ranks)}
+        check(max(errs) <= DP_FBANK_TOL, f"sharded {k}: {errs} against one call")
+    row["encode"] = {**enc, "tolerance": DP_FBANK_TOL, "chunks": DP_CHUNKS,
+                     "launches_per_rank": [r["encode"]["launches"] for r in ranks],
+                     "s_per_rank": [r["encode"]["s"] for r in ranks],
+                     "s_one_process": one["encode"]["s"]}
+    emit(row)
+    return row
+
+
+def phase_distributed_cli(root: Path) -> dict:
+    """(c) ``--fn train_gesture`` at tiny widths launched through
+    ``LocalRunner.submit_multihost`` at world size 1 on ``--device cuda``
+    (the rendered environment, NCCL), against a plain run in this process:
+    the ``[distributed]`` line, and the same logged losses."""
+    import numpy as np
+
+    from amuse_tpu_torch.cluster.jobs import JobSpec, LocalRunner
+
+    rng = np.random.default_rng(15)
+    for actor_id, name in ((2, "scott"), (9, "miranda")):
+        _write_take(root, actor_id, name, "0_9_9", 4, rng)
+    log = OUT / "cli_distributed.log"
+
+    def cfg(work: str) -> str:
+        c = dict(TINY_CFG, out_dir=str(root / work / "runs"),
+                 gesture={**TINY_CFG["gesture"], "epochs": 2, "batch_size": 4,
+                          "model_save_freq": 1},
+                 data={"data_root": str(root / "beat"), "mosh_root": str(root / "mosh"),
+                       "cache_dir": str(root / "cache"), "stage1_dataset": str(root / "s1.npz"),
+                       "smplx_model_dir": str(root / "none")})
+        (root / f"{work}.json").write_text(json.dumps(c))
+        return str(root / f"{work}.json")
+
+    def rows(work: str) -> dict:
+        run = sorted((root / work / "runs").iterdir())[-1]
+        return {r["step"]: r for r in map(json.loads,
+                                         (run / "metrics.jsonl").read_text().splitlines())}
+
+    t0 = time.perf_counter()
+    _run_cli(["--fn", "prepare_data", "--cfg", cfg("prep")], log, root)
+    _run_cli(["--fn", "train_gesture", "--cfg", cfg("plain")], log, root)
+    plain_s = time.perf_counter() - t0
+    runner = LocalRunner(OUT / "distributed_jobs")
+    spec = JobSpec("train_gesture_world1", [sys.executable, "-m", "amuse_tpu_torch.cli.main",
+                                            "--fn", "train_gesture", "--cfg", cfg("world1"),
+                                            "--device", "cuda"], workdir=str(root))
+    t1 = time.perf_counter()
+    rcs = runner.submit_multihost(spec, master=f"localhost:{_free_port()}",
+                                  env={**os.environ, "PYTHONPATH": str(ROOT)})
+    world1_s = time.perf_counter() - t1
+    text = (OUT / "distributed_jobs" / "train_gesture_world1.r0.log").read_text()
+    check(rcs == [0], f"world-1 train_gesture exited {rcs}:\n{text[-3000:]}")
+    line = next((x for x in text.splitlines() if x.startswith("[distributed]")), "")
+    check("process 0 of 1, 1 devices total (nccl, cuda:0)" in line,
+          f"no [distributed] line of an NCCL world of 1: {line!r}")
+    want, got = rows("plain"), rows("world1")
+    keys = [k for k in want.get(1, {}) if k.startswith("train_")]
+    diffs = [abs(got[e][k] - want[e][k]) / abs(want[e][k]) for e in (0, 1) for k in keys]
+    check(sorted(got) == [0, 1] and keys and max(diffs) <= DP_CLI_RTOL,
+          f"world-1 CLI losses {got} against the plain run's {want}")
+    row = {"phase": "distributed_cli_world1", "distributed_line": line,
+           "max_rel_diff": max(diffs), "tolerance": DP_CLI_RTOL, "plain_s": plain_s,
+           "world1_s": world1_s, "epoch2": {k: got[1][k] for k in keys}}
+    emit(row)
+    return row
+
+
+def run_distributed() -> dict:
+    """The three data-parallel phases, the CLI's in a temporary directory."""
+    # the card machine has no network: the ranks of one host talk over loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    rows = {"world1": phase_distributed_world1(), "gloo": phase_distributed_gloo()}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["cli"] = phase_distributed_cli(Path(tmp))
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
                                                  "PyTorch/CUDA port on one NVIDIA GPU.")
@@ -2931,6 +3381,11 @@ def main(argv=None) -> int:
                         help="the same for the legacy zoo and MFCC + DTW: small widths "
                              "against the CPU, the raw-diffusion step and samplers, MFCC and "
                              "DTW, every member's forward at its default widths")
+    parser.add_argument("--only-distributed", action="store_true",
+                        help="the same for data parallelism: NCCL at world size 1 (the "
+                             "flagship stage-1 and LPDM steps with and without the gradient "
+                             "sync), two gloo ranks on the card against one process, the "
+                             "train_gesture CLI launched through cluster/jobs.py")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -2964,7 +3419,7 @@ def main(argv=None) -> int:
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
             or args.only_train_step or args.only_edit or args.only_prepare_data
             or args.only_train_gesture or args.only_eval or args.only_host_tasks
-            or args.only_legacy):
+            or args.only_legacy or args.only_distributed):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -2986,6 +3441,8 @@ def main(argv=None) -> int:
             run_host_tasks()
         if args.only_legacy:
             phase_legacy(smi)
+        if args.only_distributed:
+            run_distributed()
         return 0
     k1_cases = phase_attention()
     k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
@@ -3002,6 +3459,7 @@ def main(argv=None) -> int:
     evals = run_eval()
     host = run_host_tasks()
     phase_legacy(smi)
+    dp = run_distributed()
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
          "source": "amuse_tpu_torch/csrc/attention_fwd.cu",
@@ -3052,6 +3510,13 @@ def main(argv=None) -> int:
     kernels[1]["eval_tail"] = ev["k3_tail"]
     for i, name in ((0, "attention_fwd"), (1, "ddim_sampler")):
         kernels[i]["launches_infer_cli_with_render_wiring"] = host["launches_per_infer_cli"][name]
+    # data parallelism: per step at world size 1 (NCCL), per rank of two gloo ranks
+    for k in kernels:
+        name = k["name"]
+        k["launches_per_world1_step"] = {part: dp["world1"][part]["launches_per_step"][name]
+                                         for part in ("stage1", "lpdm")}
+        k["launches_per_gloo_rank"] = {part: [r[name] for r in dp["gloo"][part]["launches_per_rank"]]
+                                       for part in ("lpdm", "stage1", "encode")}
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     (OUT / "kernels.json").write_text(json.dumps({"kernels": kernels, "nvidia_smi": smi,
                                                   "seconds": time.perf_counter() - t_start},

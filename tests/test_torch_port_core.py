@@ -227,7 +227,8 @@ def test_port_imports_neither_jax_nor_amuse_tpu():
     """Import every module of amuse_tpu_torch in a fresh interpreter (the
     evaluation modules, the native loader, the host-side utilities and the
     legacy zoo among them, and every class the registry's lazy constructors
-    resolve; the bpy scripts under viz/blender/ are no package): no jax,
+    resolve, the data parallelism and the launcher; the bpy scripts under
+    viz/blender/ are no package): no jax,
     flax, optax, orbax or transformers, and no module named amuse_tpu or
     amuse_tpu.* (amuse_tpu_torch shares the prefix without the dot)."""
     code = (
@@ -250,6 +251,7 @@ def test_port_imports_neither_jax_nor_amuse_tpu():
         "                                                'legacy_family', 'actor', 'registry')]\n"
         "need += ['amuse_tpu_torch.diffusion.gaussian', 'amuse_tpu_torch.train.raw_diffusion',\n"
         "         'amuse_tpu_torch.audio.mfcc']\n"
+        "need += ['amuse_tpu_torch.parallel.mesh', 'amuse_tpu_torch.cluster.jobs']\n"
         "bpy = [k for k in sys.modules if k in ('bpy', 'addon_utils')]\n"
         "missing = [m for m in need + ['amuse_tpu_torch.native.loader'] if m not in sys.modules]\n"
         "print(n, bad, missing, bpy)\n"

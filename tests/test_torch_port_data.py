@@ -22,6 +22,7 @@ from amuse_tpu.cli.config import load_config as jload_config
 from amuse_tpu.data import beat as jbeat
 from amuse_tpu.data import cache as jcache
 from amuse_tpu.data import stage1 as jstage1
+from amuse_tpu_torch.audio.fbank import make_sharded_fbank
 from amuse_tpu_torch.cli import main as cli
 from amuse_tpu_torch.data import beat, cache, stage1
 from tests.torch_port_pipes import FEAT_ATOL, make_pipes, write_take
@@ -201,7 +202,7 @@ def test_stage1_quads_match_jax(tree):
     takes = beat.discover(tree / "beat", tree / "mosh")
     jtakes = jbeat.discover(tree / "beat", tree / "mosh")
     assert stage1.takes_provenance(takes) == jstage1.takes_provenance(jtakes)
-    per_take = stage1.fbanks_per_take(takes, stage1.device_fbank_fn("cpu"))
+    per_take = stage1.fbanks_per_take(takes, make_sharded_fbank(None, "cpu"))
     jper_take = jstage1.fbanks_per_take(jtakes)
     assert per_take.keys() == jper_take.keys() and len(per_take) == 8  # the short wav is left out
     for split, n in (("train", 2), ("val", 2)):

@@ -8,6 +8,9 @@ conftest.py imports JAX, so on the GPU machine run it with
 """
 
 import dataclasses
+import os
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -1209,3 +1212,108 @@ def test_mfcc_and_dtw_on_the_card_match_cpu(cuda):
     acc, ref = M.dtw_cost(want[0].to(cuda), want[2].to(cuda)), M.dtw_cost(want[0], want[2])
     dtw_err = ((acc.cpu() - ref).abs().max() / ref.abs().max()).item()
     assert mfcc_err <= MFCC_TOL and dtw_err <= DTW_TOL, (mfcc_err, dtw_err)
+
+
+# ---- data parallelism (parallel/mesh.py) on the one card ----------------------
+
+
+def _dist_workers():
+    """tests/torch_port_dist.py, imported from this directory: an installed
+    package named ``tests`` may shadow it (the spawned ranks inherit the path)."""
+    here = str(Path(__file__).resolve().parent)
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_port_dist
+
+    return torch_port_dist
+
+
+def test_world1_nccl_sync_is_the_identity(cuda, tmp_path, monkeypatch):
+    """One NCCL rank (the launcher's environment at world size 1): a small
+    stage-1 step's gradients (K1, K2) leave the all-reduce divided by 1 bit
+    for bit, and so do the logs' means; the step with the sync equals the
+    plain step given the same gradients."""
+    import copy
+
+    import torch.distributed as dist
+
+    from amuse_tpu_torch.ops import attention
+    from amuse_tpu_torch.parallel import mesh as M
+    from amuse_tpu_torch.train import audio as ta
+    D = _dist_workers()
+
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", os.environ.get("NCCL_SOCKET_IFNAME", "lo"))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.setenv(k, "1" if k == "WORLD_SIZE" else "0")
+    dev = M.initialize_distributed("cuda", init_method=f"file://{tmp_path}/process_group")
+    try:
+        assert dist.get_backend() == "nccl" and dev == torch.device("cuda", 0)
+        mesh = M.make_mesh()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(11)
+            model = D.ASTDisentangler(D.ASTConfig(**D.AST_KW), fusion_dim=64).to(dev)
+        twin = copy.deepcopy(model)
+        state = ta.AudioTrainState(model, ta.make_optimizer(model, D.ACFG))
+        plain = ta.AudioTrainState(twin, ta.make_optimizer(twin, D.ACFG))
+        seen = {}
+
+        class Recorded(M.GradSync):
+            def all_reduce(self, params):
+                params = list(params)
+                seen["before"] = [p.grad.clone() if p.grad is not None else None for p in params]
+                super().all_reduce(params)
+                seen["same"] = all(b is None and p.grad is None or torch.equal(b, p.grad)
+                                   for b, p in zip(seen["before"], params))
+
+        step, _ = ta.make_train_step(D.ACFG, Recorded(mesh))
+        batch = ta.batch_to_device(D.stage1_batch(2, 1, 64, 32), dev)
+        before = attention.mha.launches
+        for i in range(2):
+            logs = step(state, batch, ta.step_generator(6, 0, i, dev))
+            assert seen["same"]
+            for p, g in zip(twin.parameters(), seen["before"]):
+                p.grad = g
+            plain.optimizer.step()
+        assert attention.mha.launches - before == 2 * D.AST_KW["depth"]
+        for (n, a), b in zip(model.named_parameters(), twin.parameters()):
+            assert torch.equal(a, b), n
+        assert all(torch.equal(a, b) for a, b in zip(M.mean_logs(logs, mesh).values(),
+                                                       logs.values()))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path, monkeypatch):
+    """Two gloo ranks sharing the card against one process on it at the same
+    global batch (tests/test_torch_port_parallel.py's bounds,
+    ``torch_port_dist.errors``: losses rtol 1e-5, first-step gradients 1e-4
+    of their largest entry, first-step parameters lr/10 where its gradient
+    exceeds 1e-6; bit-equal across the ranks): the small LPDM steps (K3 twice a
+    rank), the stage-1 steps with and without augmentation and dropout (K1
+    and K2 twice a rank), the sharded fbank and encode (within 1e-5 of one
+    call). The planted fault (each rank on its own rows' gradient) falls
+    outside those bounds."""
+    D = _dist_workers()
+
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+    ranks = D.run_ranks(D.suite, 2, tmp_path, device="cuda:0", backend="gloo")
+    one = {"lpdm": D.lpdm_steps(None, cuda), "stage1": D.stage1_steps(None, cuda),
+           "stage1_augmented": D.stage1_steps(None, cuda, stochastic=True, dropout=0.1),
+           "encode": D.fbank_and_encode(None, cuda)}
+    for key in ("lpdm", "stage1", "stage1_augmented"):
+        a, b = (r[key] for r in ranks)
+        assert all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"]), key
+        for r in (a, b):
+            err = D.errors(r, one[key])
+            assert D.within(err), (key, err)
+    for key in ("lpdm", "stage1"):
+        for r in ranks:
+            assert not D.within(D.errors(r[f"{key}_fault"], one[key])), key
+    for r in ranks:
+        assert r["lpdm"]["launches"]["ddim_sampler"] == 2
+        for key in ("stage1", "stage1_augmented"):
+            assert r[key]["launches"]["attention_fwd"] == 2 * D.AST_KW["depth"]
+            assert r[key]["launches"]["attention_bwd"] == 2 * D.AST_KW["depth"]
+        assert r["encode"]["launches"]["attention_fwd"] == 1
+        for k in ("fbank", "con", "emo", "sty"):
+            torch.testing.assert_close(r["encode"][k], one["encode"][k], atol=1e-5, rtol=0)
