@@ -355,6 +355,7 @@ def task_edit_gesture(cfg, device: torch.device):
 def task_train_audio(cfg, device: torch.device):
     """Stage-1 AST disentangler training (reference: trainer.train_dtw_ast)."""
     import dataclasses
+    import shutil
 
     import numpy as np
 
@@ -362,8 +363,10 @@ def task_train_audio(cfg, device: torch.device):
     from amuse_tpu_torch.eval.classification import epoch_stats
     from amuse_tpu_torch.parallel.mesh import (
         GradSync,
+        barrier,
         current_mesh,
         data_size,
+        is_local_main,
         is_main,
         replicate,
         shard_rows,
@@ -384,7 +387,9 @@ def task_train_audio(cfg, device: torch.device):
         frame_based_feats=a.frame_based_feats, freq_mask=a.freq_mask,
         time_mask=a.time_mask, noise_aug=a.noise,
     )
-    train, val = stage1.load_dataset(Path(cfg.data.stage1_dataset))
+    # the arrays unpacked once per host into the run directory, mapped by its ranks
+    unpacked = run_dir / "stage1_unpacked"
+    train, val = stage1.load_dataset(Path(cfg.data.stage1_dataset), mesh, unpacked)
     # the same AST config the inference pipeline builds from cfg
     _, _, ast_cfg = _model_cfgs(cfg)
     n_train = int(train["emo_id"].shape[0])
@@ -445,6 +450,10 @@ def task_train_audio(cfg, device: torch.device):
               + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
         if ckpt:  # full state: parameters, Adam moments, step
             ckpt.save(epoch + 1, state.state_dict(), metrics)
+    if mesh is not None:
+        barrier(mesh)  # every rank is done with the mapped arrays
+        if is_local_main(mesh):
+            shutil.rmtree(unpacked, ignore_errors=True)
 
 
 def task_train_gesture(cfg, device: torch.device):

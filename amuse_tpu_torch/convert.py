@@ -36,7 +36,9 @@ from amuse_tpu_torch.infer.pipeline import ENCODERS, PipelineParams
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    """A C-contiguous float32 copy: a transposed kernel keeps no transposed
+    strides, which fused optimizers refuse in the Adam moments."""
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
 
 
 def _linear(p: Mapping, out: dict, prefix: str) -> None:
@@ -178,6 +180,138 @@ def from_jax_params(tree) -> PipelineParams:
         ast.update(ast_encoder_from_jax(enc, f"{name}_enc"))
     return PipelineParams(ast=ast, prior=prior_from_jax(tree["prior"]),
                           denoiser=denoiser_from_jax(tree["denoiser"]))
+
+
+# ---- train states (the orbax checkpoints' trees) ----------------------------
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def assert_permutation(mapper, tree: Mapping) -> None:
+    """Raise unless ``mapper`` (a flax tree -> {name: tensor}) moves every
+    element of ``tree`` to exactly one place of its result, with no sum,
+    scale or copy: fed a tree of distinct bit patterns (a uint32 count seen
+    as float32; the maps only move bytes), its result must hold each pattern
+    once. Such a map carries an Adam second moment, a sum of squares, exactly
+    as it carries the parameters."""
+    count = 0
+
+    def ids(x):
+        nonlocal count
+        shape = np.shape(x)
+        n = math.prod(shape)
+        out = np.arange(count, count + n, dtype=np.uint32).view(np.float32).reshape(shape)
+        count += n
+        return out
+
+    id_tree = _tree_map(ids, tree)
+    if count > np.iinfo(np.uint32).max:
+        raise ValueError(f"{count} elements: too many for the permutation check")
+    mapped = mapper(id_tree)
+    seen, placed = np.zeros(count, bool), 0
+    for v in mapped.values():
+        bits = v.numpy().view(np.uint32).reshape(-1)
+        if bits.size and int(bits.max()) >= count:
+            raise AssertionError("the map computes values: an output is no element of its input")
+        seen[bits] = True
+        placed += bits.size
+    if placed != count or not seen.all():
+        raise AssertionError(f"the map is no permutation: {count} elements in, {placed} placed, "
+                             f"{int(seen.sum())} distinct")
+
+
+def _prefixed(**maps):
+    """{prefix: (flax subtree key, map)} -> one map of a flax tree into
+    ``<prefix>.<name>`` keys."""
+    def mapper(tree):
+        return {f"{pre}.{k}": v for pre, (key, fn) in maps.items()
+                for k, v in fn(tree if key is None else tree[key]).items()}
+    return mapper
+
+
+def _train_state_from_jax(tree: Mapping, modules: dict, optimizer: torch.optim.Optimizer,
+                          mapper) -> tuple[dict, dict | None, int]:
+    """-> (state dict per module, optimizer state dict or None, step).
+
+    ``modules`` ({prefix: module}, on any device, ``meta`` included) are the
+    port's, in the optimizer's order of parameters; the parameters and both
+    Adam moments go through ``mapper`` (checked to be a permutation). A port
+    parameter that the flax tree lacks is left out of the state dicts (the
+    train states load without it and keep their own) and gets no optimizer
+    state (torch makes it at its first gradient). A tree of bare parameters
+    (no ``opt_state``: checkpoints older than the full train state) gives
+    None for the optimizer and step 0, as the JAX package's fallback."""
+    full = "opt_state" in tree and "params" in tree
+    params_tree = tree["params"] if full else tree
+    assert_permutation(mapper, params_tree)
+    params = mapper(params_tree)
+    names = [f"{pre}.{n}" for pre, m in modules.items() for n, _ in m.named_parameters()]
+    extra = sorted(set(params) - set(names))
+    if extra:
+        raise KeyError(f"flax parameters with no counterpart in the port: {extra[:5]}")
+    state_dicts = {pre: {k[len(pre) + 1:]: v for k, v in params.items()
+                         if k.startswith(pre + ".")} for pre in modules}
+    if not full:
+        return state_dicts, None, 0
+    opt = tree["opt_state"]
+    mu, nu = mapper(opt["mu"]), mapper(opt["nu"])
+    step = torch.tensor(float(np.asarray(opt["count"])), dtype=torch.float32)
+    state = {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+             for i, n in enumerate(names) if n in params}
+    groups = optimizer.state_dict()["param_groups"]
+    lr = float(np.asarray(opt["lr"]))
+    return state_dicts, {"state": state, "param_groups": [{**g, "lr": lr} for g in groups]}, \
+        int(np.asarray(tree["step"]))
+
+
+def audio_train_state_from_jax(tree: Mapping, state) -> dict:
+    """A restored JAX stage-1 ``TrainState`` -> the dict that the port's
+    ``train.audio.AudioTrainState.load_state_dict`` takes.
+
+    ``tree`` is orbax's template-free restore: ``{"params", "opt_state":
+    {"count", "lr", "mu", "nu"}, "step"}`` of numpy arrays, or bare
+    parameters. ``state`` is the port's state at the run's widths (its
+    modules may live on ``meta``): it gives the order of the optimizer's
+    parameters and its hyperparameters. The parameters and both moments go
+    through ``disentangler_from_jax``; each parameter's ``step`` is
+    ``count`` (torch keeps one per parameter, JAX one), and ``lr`` is the
+    JAX state's, which is the schedule's at the last epoch trained:
+    ``set_lr`` at the resumed epoch overrides it in both packages.
+
+    One side only: the label heads of the ``frame_based_feats`` branch that
+    flax did not trace (``{emo,sty}_enc.mlp_head.*`` by default) are left out
+    and have no moments; the resumed state keeps its own. Every flax parameter has a port parameter
+    (the positional tables ``pos_embed`` and ``*.pe`` are parameters on both
+    sides, decayed alike). Bare parameters give no ``"optimizer"`` key and
+    step 0: ``restore_train_state`` then keeps fresh moments.
+    """
+    sds, opt, step = _train_state_from_jax(
+        tree, {"model": state.model}, state.optimizer,
+        _prefixed(model=(None, disentangler_from_jax)))
+    out = {"model": sds["model"], "step": step}
+    if opt is not None:
+        out["optimizer"] = opt
+    return out
+
+
+def gesture_train_state_from_jax(tree: Mapping, state) -> dict:
+    """A restored JAX LPDM ``TrainState`` (params ``{"prior", "denoiser"}``)
+    -> the dict that ``train.gesture.GestureTrainState.load_state_dict``
+    takes; as ``audio_train_state_from_jax``, through ``prior_from_jax`` and
+    ``denoiser_from_jax``, with the optimizer's order the prior's parameters
+    then the denoiser's. The two trees cover the same parameters (no
+    parameter is on one side only); ``lr`` is the constant learning rate."""
+    sds, opt, step = _train_state_from_jax(
+        tree, {"prior": state.prior, "denoiser": state.denoiser}, state.optimizer,
+        _prefixed(prior=("prior", prior_from_jax), denoiser=("denoiser", denoiser_from_jax)))
+    out = {"params": sds, "step": step}
+    if opt is not None:
+        out["optimizer"] = opt
+    return out
 
 
 # ---- the legacy model zoo ---------------------------------------------------

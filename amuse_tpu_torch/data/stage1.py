@@ -10,12 +10,18 @@ the JAX package's, read and written byte for byte the same: each take's
 fbank chunks once in ``fbank_bank`` (M, 1024, 128) with ``quad_idx`` (N, 4)
 indices into it, 0-based ``emo_id``, ``a1_id``, ``a2_id`` labels, and a
 ``__meta__`` provenance record; ``batches`` gathers the quads at batch time.
+A data-parallel run maps the arrays from one unpacked copy per host in a
+directory of the run (``load_dataset``).
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import os
+import shutil
+import tempfile
+import zipfile
 from pathlib import Path
 from typing import Callable, Iterator, Optional, Sequence
 
@@ -147,11 +153,75 @@ def dataset_is_current(path, provenance: list) -> bool:
     return meta.get("takes") is not None and meta["takes"] == list(provenance)
 
 
-def load_dataset(path) -> tuple[dict, dict]:
-    d = np.load(_npz_path(path))
-    train = {k[len("train_"):]: d[k] for k in d.files if k.startswith("train_")}
-    val = {k[len("val_"):]: d[k] for k in d.files if k.startswith("val_")}
+def load_dataset(path, mesh=None, unpack_dir=None) -> tuple[dict, dict]:
+    """The splits of a stage-1 npz -> (train, val) dicts of arrays.
+
+    One process (``mesh=None``) reads each array whole from the npz. In a
+    data-parallel run a host holds one copy of the arrays however many ranks
+    it runs: the host's local rank 0 unpacks each array once into
+    ``<unpack_dir>/<key>.npy`` (``_unpack``; ``unpack_dir`` is a directory of
+    the run), a barrier follows, and every rank, local rank 0 included, maps
+    the files with ``np.load(mmap_mode="r")``. The mapped pages are the page
+    cache's, shared by the host's ranks, and ``batches`` copies only a batch's
+    rows out of them. The caller removes ``unpack_dir`` when the run is done
+    with it.
+    """
+    from amuse_tpu_torch.parallel.mesh import barrier, is_local_main
+
+    p = _npz_path(path)
+    if mesh is None:
+        d = np.load(p)
+        arrays = {k: d[k] for k in d.files}
+    else:
+        if unpack_dir is None:
+            raise ValueError("a data-parallel load_dataset needs unpack_dir, a directory "
+                             "of the run to unpack the npz into")
+        root = Path(unpack_dir)
+        if is_local_main(mesh):
+            _unpack(p, root)
+        barrier(mesh)
+        with zipfile.ZipFile(p) as z:
+            keys = [n[:-len(".npy")] for n in z.namelist()]
+        arrays = {k: np.load(root / f"{k}.npy", mmap_mode="r") for k in keys}
+    train = {k[len("train_"):]: v for k, v in arrays.items() if k.startswith("train_")}
+    val = {k[len("val_"):]: v for k, v in arrays.items() if k.startswith("val_")}
     return train, val
+
+
+def _unpack(npz: Path, root: Path) -> None:
+    """Each member of ``npz`` (a ``.npy`` file, compressed) copied into
+    ``root`` in 1 MB pieces, never decoded whole. A file is written under a
+    temporary name that no other writer holds (``_write_new``) and renamed,
+    its record (the npz's mtime, its size) written after it; a file whose
+    record does not match is written anew, so a crashed or older unpacking is
+    never mapped, and the local rank 0 of several hosts may unpack into one
+    shared ``root`` at once."""
+    root.mkdir(parents=True, exist_ok=True)
+    mtime = npz.stat().st_mtime_ns
+    with zipfile.ZipFile(npz) as z:
+        for info in z.infolist():
+            dst, rec = root / info.filename, root / f"{info.filename}.json"
+            want = {"source_mtime_ns": mtime, "size": info.file_size}
+            if (dst.exists() and rec.exists() and dst.stat().st_size == info.file_size
+                    and json.loads(rec.read_text()) == want):
+                continue
+            rec.unlink(missing_ok=True)
+            with z.open(info) as src:
+                _write_new(dst, lambda out: shutil.copyfileobj(src, out, 1 << 20))
+            _write_new(rec, lambda out: out.write(json.dumps(want).encode()))
+
+
+def _write_new(dst: Path, write: Callable) -> None:
+    """``write(file)`` into a new file beside ``dst``, created exclusively,
+    then renamed over ``dst``."""
+    fd, tmp = tempfile.mkstemp(prefix=f".{dst.name}.", suffix=".tmp", dir=dst.parent)
+    try:
+        with os.fdopen(fd, "wb") as out:
+            write(out)
+        os.replace(tmp, dst)
+    except BaseException:
+        os.unlink(tmp)
+        raise
 
 
 def batches(data: dict[str, np.ndarray], batch_size: int,

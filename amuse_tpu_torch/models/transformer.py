@@ -13,8 +13,9 @@ ops: its JAX counterpart is XLA einsum, not a Pallas kernel.
 weights, the FFN activation and both residual branches, as the JAX layer
 does; ``DecoderLayer(dropout=p)`` the same around its self- and
 cross-attention and FFN. The masks come from the ``torch.Generator`` passed
-to ``forward`` (the skip stacks pass theirs to every layer). With the
-default ``dropout=0.0`` (inference) nothing is drawn.
+to ``forward`` (the skip stacks pass theirs to every layer), or from a
+data-parallel rank's ``(generator, world, rank)`` in its place: the rank's
+share of the masks of the global batch. With the default ``dropout=0.0`` (inference) nothing is drawn.
 """
 
 from __future__ import annotations
@@ -30,12 +31,27 @@ _TORCH_LN_EPS = 1e-5
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator | tuple] = None) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): keep with probability 1 - p,
-    scale kept values by 1 / (1 - p); the identity unless training and p > 0."""
+    scale kept values by 1 / (1 - p); the identity unless training and p > 0.
+
+    ``generator`` may be a data-parallel rank's draws ``(generator, world,
+    rank)``: the mask is drawn at the global batch's shape, ``world`` times
+    the rank's rows along axis 0, and the rank keeps its rows, so one process
+    over the global batch draws the same masks from the same generator. The
+    batch is axis 0 of every tensor that reaches this function here: attention
+    weights (B, H, Tq, Tk), layer outputs (B, T, D), FFN activations (B, T, ff).
+    """
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if isinstance(generator, tuple):
+        generator, world, rank = generator
+        n = x.shape[0]
+        u = torch.rand((n * world, *x.shape[1:]), generator=generator,
+                       device=x.device)[rank * n:(rank + 1) * n]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -116,6 +116,12 @@ def is_main(mesh) -> bool:
     return mesh is None or dist.get_rank() == 0
 
 
+def is_local_main(mesh) -> bool:
+    """Whether this process does a host's one-per-host work (local rank 0, or
+    no group): ``LOCAL_RANK`` as the launcher set it."""
+    return mesh is None or int(os.environ.get("LOCAL_RANK", "0")) == 0
+
+
 _HOST_GROUPS: dict = {}  # default group -> its gloo twin (NCCL runs only)
 
 
@@ -315,19 +321,10 @@ def sharded_rows_fn(fn: Callable, mesh) -> Callable:
     return run
 
 
-def rank_generator(generator: Optional[torch.Generator], rank: int) -> Optional[torch.Generator]:
-    """A generator of this rank's own draws (dropout masks, drawn at the local
-    shape), seeded from ``generator``'s seed and ``rank``."""
-    if generator is None:
-        return None
-    hi, lo = np.random.SeedSequence([generator.initial_seed(), rank]).generate_state(2, np.uint32)
-    return torch.Generator(device=generator.device).manual_seed((int(hi) << 32) | int(lo))
-
-
 class GradSync:
     """What a data-parallel train step needs of the mesh: this rank's rows of
     the global batch, the gradients' all-reduce, the logs' global means, and
-    a generator of this rank's dropout masks."""
+    this rank's share of the dropout masks drawn for the global batch."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -346,7 +343,9 @@ class GradSync:
     def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         return gather_batch(x, self.mesh, dim)
 
-    def generator(self, generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
-        """``generator`` itself on one rank (a world-1 step draws what a
-        single process draws), else this rank's own."""
-        return generator if self.size == 1 else rank_generator(generator, self.rank)
+    def dropout_draws(self, generator: Optional[torch.Generator]) -> tuple:
+        """The step's ``generator`` as this rank's dropout draws
+        ``(generator, world, rank)`` for ``models.transformer.dropout``: each
+        mask drawn at the global batch's shape, this rank's rows kept (at
+        world size 1, the masks a single process draws)."""
+        return (generator, self.size, self.rank)

@@ -45,6 +45,7 @@ import torch
 from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
 from amuse_tpu_torch.parallel.mesh import GradSync
 from amuse_tpu_torch.train import losses as L
+from amuse_tpu_torch.train.checkpoint import load_optimizer
 
 
 @dataclass(frozen=True)
@@ -80,9 +81,15 @@ class AudioTrainState:
                 "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.step = int(state["step"])
+        """Parameters, then the optimizer and step where ``state`` has them (a
+        checkpoint of bare parameters keeps fresh moments). The label heads
+        of the branch that a JAX run did not trace may be absent: the model
+        keeps its own (``convert.audio_train_state_from_jax``)."""
+        missing, unexpected = self.model.load_state_dict(state["model"], strict=False)
+        if unexpected or any(".mlp_head" not in k for k in missing):
+            raise RuntimeError(f"stage-1 state dict: missing {missing}, unexpected {unexpected}")
+        load_optimizer(self.optimizer, state.get("optimizer"))
+        self.step = int(state.get("step", self.step))
 
 
 def make_optimizer(model: torch.nn.Module, cfg: AudioTrainConfig) -> torch.optim.Adam:

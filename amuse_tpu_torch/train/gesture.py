@@ -22,11 +22,11 @@ dropout masks in the order the layers run.
 
 Data parallel (``grad_sync``, ``parallel/mesh.py``): each rank's batch is its
 rows of the global batch. Every rank draws the global batch's ``StepNoise``
-from the one generator and keeps its rows, so at dropout 0 a W-rank step is
-the single-process step; the dropout masks are drawn at the local shape from
-a generator of the rank's own. K3 monitors the rank's own windows. The
-gradients are all-reduced between ``backward`` and the optimizer's step,
-and the returned logs are the global batch's.
+and every dropout mask, at the global batch's shape, from the one generator
+and keeps its rows (``models.transformer.dropout``), so a W-rank step is
+the single-process step, dropout included. K3 monitors the rank's own
+windows. The gradients are all-reduced between ``backward`` and the
+optimizer's step, and the returned logs are the global batch's.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from amuse_tpu_torch.models.vae import MotionPrior, PriorConfig
 from amuse_tpu_torch.ops.denoiser_kernel import ddim_sample_fused
 from amuse_tpu_torch.parallel.mesh import GradSync
 from amuse_tpu_torch.train import losses as L
+from amuse_tpu_torch.train.checkpoint import load_optimizer
 
 
 @dataclass(frozen=True)
@@ -102,10 +103,12 @@ class GestureTrainState:
                 "optimizer": self.optimizer.state_dict(), "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
+        """Parameters, then the optimizer and step where ``state`` has them (a
+        checkpoint of bare parameters keeps fresh moments)."""
         self.prior.load_state_dict(state["params"]["prior"])
         self.denoiser.load_state_dict(state["params"]["denoiser"])
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.step = int(state["step"])
+        load_optimizer(self.optimizer, state.get("optimizer"))
+        self.step = int(state.get("step", self.step))
 
 
 def make_optimizer(prior: MotionPrior, denoiser: Denoiser,
@@ -216,8 +219,9 @@ def make_train_step(prior_cfg: PriorConfig = PriorConfig(),
     monitors run when ``cfg.vtex_displacement`` and ``smplx_model`` (on the
     step's device) is given. With ``grad_sync`` the step is one rank's of a
     data-parallel step: ``batch`` holds its rows, ``noise`` (drawn or given)
-    is the global batch's and the rank keeps its rows, the gradients are
-    all-reduced before the optimizer's step, and the logs are global.
+    is the global batch's and the rank keeps its rows, as it does of every
+    dropout mask, the gradients are all-reduced before the optimizer's step,
+    and the logs are global.
     """
     schedule = make_schedule()
     do_vtex = with_monitor and cfg.vtex_displacement and smplx_model is not None
@@ -239,7 +243,7 @@ def make_train_step(prior_cfg: PriorConfig = PriorConfig(),
                 raise ValueError(f"noise for {noise.t.shape[0]} rows; the global batch "
                                  f"has {b * world}")
             noise = StepNoise(*(x[grad_sync.rows(b)] for x in noise))
-            dropout_gen = grad_sync.generator(generator)
+            dropout_gen = grad_sync.dropout_draws(generator)
         total, logs = loss_fn(state, batch, cfg, schedule, noise, dropout_gen, with_monitor,
                               smplx_model, soc)
         state.optimizer.zero_grad(set_to_none=True)

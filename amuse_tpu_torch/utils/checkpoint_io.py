@@ -5,7 +5,11 @@ reads ``AMUSE_TPU_CKPT`` and resolves, in order:
 
   1. a run directory (``metadata.json`` / ``step_*``) written by the port's
      ``train.checkpoint.CheckpointManager``, holding ``{"prior",
-     "denoiser"}`` state dicts, with the AST from ``AMUSE_TPU_AST_CKPT``;
+     "denoiser"}`` state dicts, with the AST from ``AMUSE_TPU_AST_CKPT``. A
+     JAX run's orbax directory, converted by the root script
+     ``orbax_to_torch.py`` where the JAX package is installed, is such a
+     directory and loads the same way; an unconverted one raises, naming
+     the script;
   2. a directory of released AMUSE PyTorch files (``*.pt``, ``model_*.pkl``),
      the "best" of each kind selected by the reference's own filename-metric
      grammars (below), so that it loads the files the reference would;
@@ -64,8 +68,9 @@ def _unwrap_params(tree):
 
 
 def _restore(root: Path):
-    """The latest step of a port run directory; an orbax step directory of
-    the JAX package raises ``NotImplementedError``."""
+    """The latest step of a port run directory (or of one converted by
+    ``orbax_to_torch.py``); an orbax step directory of the JAX package
+    raises ``NotImplementedError`` naming that script's command line."""
     from amuse_tpu_torch.train.checkpoint import CheckpointManager
 
     tree, _ = CheckpointManager(root).restore()

@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only-host-tasks  # build, then bvh2smplx_, render tasks, blender_setup
     python3 chip_smoke.py --only-legacy  # build, then the legacy zoo and MFCC + DTW alone
     python3 chip_smoke.py --only-distributed  # build, then the data-parallel phases alone
+    python3 chip_smoke.py --only-orbax  # build, then a converted JAX train state resumed
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -36,6 +37,11 @@ the kernels' launch counters that each went through its kernels:
     CPU plain path (K3 over freshly packed weights, prefetch), at the
     flagship widths with the DDIM monitor every step (timed, traced), then
     the ``train_gesture`` CLI with a checkpoint and a resume (K3);
+  * resuming a JAX run: train states in the JAX package's orbax layout
+    (random weights and moments) mapped by ``convert.py`` and resumed, the
+    flagship LPDM step (K3) and the small stage-1 step (K1, K2) on the card
+    against the CPU, the flagship stage-1 mapping timed and its resumed
+    step (K1, K2);
   * evaluation: ``evaluate_cache`` over 100 windows at the flagship widths
     (K3 once per batch of 32, the tail of 4 included) against its small-width
     run on the CPU; the external embedder's train step; the native ABIN
@@ -3080,10 +3086,11 @@ def phase_distributed_world1() -> dict:
     return row
 
 
-def _dp_lpdm(mesh, device, steps: int = 2) -> dict:
-    """Two small LPDM steps (SMALL_PRIOR/SMALL_DENOISER, dropout 0, the 50-step
-    monitor, no vertex monitors) over the global batch of DP_SMALL_B windows,
-    this rank's rows, the draws from the step's generator."""
+def _dp_lpdm(mesh, device, steps: int = 2, dropout: float = 0.0) -> dict:
+    """Two small LPDM steps (SMALL_PRIOR/SMALL_DENOISER at ``dropout``, the
+    50-step monitor, no vertex monitors) over the global batch of DP_SMALL_B
+    windows, this rank's rows, the draws (and the dropout masks, drawn for the
+    global batch) from the step's generator."""
     import torch
 
     from amuse_tpu_torch.models.denoiser import DenoiserConfig
@@ -3092,8 +3099,8 @@ def _dp_lpdm(mesh, device, steps: int = 2) -> dict:
     from amuse_tpu_torch.train import gesture as tg
     from amuse_tpu_torch.train.audio import step_generator
 
-    prior_cfg = PriorConfig(**SMALL_PRIOR, dropout=0.0)
-    den_cfg = DenoiserConfig(**SMALL_DENOISER, dropout=0.0)
+    prior_cfg = PriorConfig(**SMALL_PRIOR, dropout=dropout)
+    den_cfg = DenoiserConfig(**SMALL_DENOISER, dropout=dropout)
     tcfg = tg.GestureTrainConfig(learning_rate=TRAIN_LR)
     state = tg.init_state(21, prior_cfg, den_cfg, tcfg, device)
     M.replicate([state.prior, state.denoiser], mesh)
@@ -3181,12 +3188,46 @@ def _dp_encode(mesh, device) -> dict:
             "launches": {**_launch_counts(), "ddim_sampler": _sampler_launches()}}
 
 
-def _dp_suite(mesh, device) -> dict:
-    return {"lpdm": _dp_lpdm(mesh, device), "stage1": _dp_stage1(mesh, device),
-            "encode": _dp_encode(mesh, device)}
+DP_BANK_ROWS = 128  # the synthetic stage-1 bank: 128 x (1024, 128) float32 = 64 MiB
 
 
-def _gloo_rank(rank: int, world: int, init: str, out: str) -> None:
+def _write_bank_npz(path: Path) -> int:
+    """A stage-1 npz whose bank is DP_BANK_ROWS fbanks -> the bank's bytes."""
+    import numpy as np
+
+    from amuse_tpu_torch.data import stage1
+
+    rng = np.random.default_rng(40)
+    bank = np.zeros((DP_BANK_ROWS, 1024, 128), np.float32)
+    bank[:, :, :2] = rng.normal(size=(DP_BANK_ROWS, 1024, 2))
+    split = {"fbank_bank": bank,
+             "quad_idx": rng.integers(0, DP_BANK_ROWS, (96, 4)).astype(np.int32),
+             **{k: rng.integers(0, 8, 96).astype(np.int32) for k in ("emo_id", "a1_id", "a2_id")}}
+    stage1.save_dataset(path, split, {k: v[:2] for k, v in split.items()}, None)
+    return bank.nbytes
+
+
+def _dist_helpers():
+    """tests/torch_port_dist.py (torch and the port only), imported from its
+    directory: an installed package named ``tests`` may shadow it."""
+    here = str(ROOT / "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_port_dist
+
+    return torch_port_dist
+
+
+def _dp_suite(mesh, device, npz: str | None = None) -> dict:
+    out = {"lpdm": _dp_lpdm(mesh, device), "lpdm_dropout": _dp_lpdm(mesh, device, dropout=0.1),
+           "stage1": _dp_stage1(mesh, device), "encode": _dp_encode(mesh, device)}
+    if npz is not None:  # rank 0 unpacks, every rank maps; then the whole-npz read
+        out["bank"] = _dist_helpers().stage1_bank(mesh, device, npz,
+                                                  str(Path(npz).with_name("unpacked")))
+    return out
+
+
+def _gloo_rank(rank: int, world: int, init: str, out: str, npz: str) -> None:
     """A spawned rank of phase (b): gloo on the one card, the small suite."""
     import traceback
 
@@ -3198,7 +3239,7 @@ def _gloo_rank(rank: int, world: int, init: str, out: str) -> None:
 
     try:
         dev = M.initialize_distributed("cuda:0", backend="gloo", init_method=f"file://{init}")
-        result = _dp_suite(M.make_mesh(), dev)
+        result = _dp_suite(M.make_mesh(), dev, npz)
         torch.save(result, Path(out) / f"rank{rank}.pt")
     except BaseException:
         (Path(out) / f"rank{rank}.err").write_text(traceback.format_exc())
@@ -3215,13 +3256,19 @@ def phase_distributed_gloo(world: int = 2) -> dict:
     are two processes on one card, not a scaling number."""
     import multiprocessing
 
+    import numpy as np
     import torch
+
+    from amuse_tpu_torch.data import stage1
 
     tmp = tempfile.TemporaryDirectory()  # the ranks' parameters and gradients: ~280 MB
     out = Path(tmp.name)
+    npz = out / "s1.npz"
+    bank_bytes = _write_bank_npz(npz)
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_rank, args=(r, world, str(out / "process_group"), str(out)))
+    procs = [ctx.Process(target=_gloo_rank, args=(r, world, str(out / "process_group"), str(out),
+                                                  str(npz)))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -3239,11 +3286,14 @@ def phase_distributed_gloo(world: int = 2) -> dict:
     check(not errors, "gloo ranks on the card failed:\n" + "\n".join(errors))
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(out / f"rank{r}.pt") for r in range(world)]
+    want_train, _ = stage1.load_dataset(npz)
+    want_batch = next(stage1.batches(want_train, 2, np.random.default_rng(0)))
+    del want_train
     tmp.cleanup()
     one = _dp_suite(None, "cuda")
     row = {"phase": "distributed_gloo_2_ranks_one_card", "world": world, "spawn_and_run_s": ranks_s,
            "note": "two processes share one card: times are not a scaling number"}
-    for part in ("lpdm", "stage1"):
+    for part in ("lpdm", "lpdm_dropout", "stage1"):
         a, b, w = ranks[0][part], ranks[1][part], one[part]
         check(all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"]),
               f"{part}: the ranks' parameters differ")
@@ -3258,6 +3308,17 @@ def phase_distributed_gloo(world: int = 2) -> dict:
                      "launches_per_rank": [r[part]["launches"] for r in ranks],
                      "launches_one_process": w["launches"],
                      "s_per_rank": [r[part]["s"] for r in ranks], "s_one_process": w["s"]}
+    # the bound (a quarter of the bank per rank) is held on the CPU
+    # (tests/test_torch_port_orbax.py): under gVisor, which faults a mapped
+    # file in whole and counts its pages as each mapping process's private
+    # memory, the reading cannot show the sharing
+    growth = [{k: r["bank"][f"{k}_growth"] for k in ("mapped", "npz")} for r in ranks]
+    check(all(r["bank"]["mapped_is_memmap"] for r in ranks)
+          and all(torch.equal(r["bank"][f"{k}_batch"][f], torch.from_numpy(want_batch[f]))
+                  for r in ranks for k in ("mapped", "npz") for f in want_batch),
+          "a rank's stage-1 arrays are not mapped, or its batch differs from the npz path's")
+    row["stage1_bank"] = {"bank_bytes": bank_bytes, "private_growth_per_rank": growth,
+                          "batches_bit_equal": True}
     check(all(r["lpdm"]["launches"]["ddim_sampler"] == 2 for r in ranks)
           and all(r["stage1"]["launches"]["attention_fwd"] == 2 * SMALL_AST["depth"]
                   and r["stage1"]["launches"]["attention_bwd"] == 2 * SMALL_AST["depth"]
@@ -3346,6 +3407,331 @@ def run_distributed() -> dict:
     return rows
 
 
+# ---- resuming a JAX run converted from its orbax checkpoints ----------------
+#
+# The JAX package's trees are built here from the port's own state dicts by
+# the inverse of amuse_tpu_torch/convert.py's maps (tests/test_torch_port_orbax.py
+# holds their layout against the JAX package's init trees on the CPU).
+ORBAX_COUNT = 3  # the JAX optimizer's count: each parameter's step reads 4 after one step
+
+
+def _flax_linear(sd: dict, prefix: str) -> dict:
+    return {"kernel": sd[f"{prefix}.weight"].T.copy(), "bias": sd[f"{prefix}.bias"]}
+
+
+def _flax_norm(sd: dict, prefix: str) -> dict:
+    return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+
+def _flax_mha(sd: dict, prefix: str) -> dict:
+    w, b = sd[f"{prefix}.in_proj_weight"], sd[f"{prefix}.in_proj_bias"]
+    d = w.shape[1]
+    out = {n: {"kernel": w[i * d:(i + 1) * d].T.copy(), "bias": b[i * d:(i + 1) * d]}
+           for i, n in enumerate(("q_proj", "k_proj", "v_proj"))}
+    out["out_proj"] = _flax_linear(sd, f"{prefix}.out_proj")
+    return out
+
+
+def _flax_layer(sd: dict, prefix: str) -> dict:
+    out = {"self_attn": _flax_mha(sd, f"{prefix}.self_attn"),
+           "ffn": {k: _flax_linear(sd, f"{prefix}.{k}") for k in ("linear1", "linear2")},
+           "norm1": _flax_norm(sd, f"{prefix}.norm1"), "norm2": _flax_norm(sd, f"{prefix}.norm2")}
+    if f"{prefix}.multihead_attn.in_proj_weight" in sd:
+        out["cross_attn"] = _flax_mha(sd, f"{prefix}.multihead_attn")
+        out["norm3"] = _flax_norm(sd, f"{prefix}.norm3")
+    return out
+
+
+def _flax_skip(sd: dict, prefix: str) -> dict:
+    n = len({k.split(".")[2] for k in sd if k.startswith(f"{prefix}.input_blocks.")})
+    out = {"mid": _flax_layer(sd, f"{prefix}.middle_block"), "norm": _flax_norm(sd, f"{prefix}.norm")}
+    for i in range(n):
+        out[f"in_{i}"] = _flax_layer(sd, f"{prefix}.input_blocks.{i}")
+        out[f"out_{i}"] = _flax_layer(sd, f"{prefix}.output_blocks.{i}")
+        out[f"skip_{i}"] = _flax_linear(sd, f"{prefix}.linear_blocks.{i}")
+    return out
+
+
+def flax_lpdm_tree(prior_sd: dict, den_sd: dict) -> dict:
+    """The port's MotionPrior and Denoiser state dicts (numpy) -> the JAX
+    package's ``{"prior", "denoiser"}`` parameter tree."""
+    p, d = prior_sd, den_sd
+    prior = {"encoder": {"dist_tokens": p["global_motion_token"],
+                         "pos": {"pe": p["query_pos_encoder.pe"][:, 0]},
+                         "skel_embedding": _flax_linear(p, "skel_embedding"),
+                         "encoder": _flax_skip(p, "encoder")},
+             "decoder": {"pos": {"pe": p["query_pos_decoder.pe"][:, 0]},
+                         "decoder": _flax_skip(p, "decoder"),
+                         "final_layer": _flax_linear(p, "final_layer")}}
+    den = {"pos": {"pe": d["query_pos.pe"][:, 0]}, "encoder": _flax_skip(d, "encoder"),
+           "time_mlp": {k: _flax_linear(d, f"time_embedding.{k}")
+                        for k in ("linear_1", "linear_2")},
+           **{f"proj_{n}": {"linear": _flax_linear(d, f"emb_proj_{n}.1")}
+              for n in ("con", "emo", "sty")}}
+    return {"prior": prior, "denoiser": den}
+
+
+def _flax_ast_encoder(sd: dict, pre: str) -> dict:
+    w = sd[f"{pre}.v.patch_embed.proj.weight"]  # (E, 1, p, p)
+    out = {"patch_proj": {"kernel": w.reshape(w.shape[0], -1).T.copy(),
+                          "bias": sd[f"{pre}.v.patch_embed.proj.bias"]},
+           "cls_token": sd[f"{pre}.v.cls_token"], "dist_token": sd[f"{pre}.v.dist_token"],
+           "pos_embed": sd[f"{pre}.v.pos_embed"], "norm": _flax_norm(sd, f"{pre}.v.norm"),
+           "feature_ln": _flax_norm(sd, f"{pre}.feature_head.0"),
+           "feature_fc": _flax_linear(sd, f"{pre}.feature_head.1")}
+    if f"{pre}.mlp_head_featbased.0.weight" in sd:  # flax traces the frame-based branch
+        out["featbased_ln"] = _flax_norm(sd, f"{pre}.mlp_head_featbased.0")
+        out["featbased_fc"] = _flax_linear(sd, f"{pre}.mlp_head_featbased.1")
+    depth = len({k.split(".")[3] for k in sd if k.startswith(f"{pre}.v.blocks.")})
+    for i in range(depth):
+        bp = f"{pre}.v.blocks.{i}"
+        out[f"block_{i}"] = {"norm1": _flax_norm(sd, f"{bp}.norm1"),
+                             "qkv": _flax_linear(sd, f"{bp}.attn.qkv"),
+                             "attn_proj": _flax_linear(sd, f"{bp}.attn.proj"),
+                             "norm2": _flax_norm(sd, f"{bp}.norm2"),
+                             "mlp_fc1": _flax_linear(sd, f"{bp}.mlp.fc1"),
+                             "mlp_fc2": _flax_linear(sd, f"{bp}.mlp.fc2")}
+    return out
+
+
+def flax_stage1_tree(sd: dict) -> dict:
+    """The port's ASTDisentangler state dict (numpy) -> the JAX package's
+    stage-1 parameter tree (the frame-based label heads, as flax traces them)."""
+
+    def stack(prefix: str) -> dict:
+        n = len({k.split(".")[2] for k in sd if k.startswith(f"{prefix}.layers.")})
+        out = {f"layer_{i}": _flax_layer(sd, f"{prefix}.layers.{i}") for i in range(n)}
+        out["norm"] = _flax_norm(sd, f"{prefix}.norm")
+        return out
+
+    tree = {f"{n}_enc": _flax_ast_encoder(sd, f"{n}_enc") for n in ("emo", "sty", "con")}
+    for block in ("fusion", "fusion_ablation"):
+        tree[block] = {**stack(block), "fc": _flax_linear(sd, f"{block}.fc")}
+    tree["decoder"] = {**stack("decode"), "proj1": _flax_linear(sd, "decode.projection.0"),
+                       "proj2": _flax_linear(sd, "decode.projection.2")}
+    return tree
+
+
+def jax_train_tree(params: dict, seed: int, lr: float) -> dict:
+    """A template-free orbax restore of a JAX train state around ``params``:
+    random moments (``nu`` positive), ``count`` ORBAX_COUNT, ``lr``, step 3."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def tree_map(fn, t):
+        return {k: tree_map(fn, v) for k, v in t.items()} if isinstance(t, dict) else fn(t)
+
+    def moment(x, second: bool):
+        m = rng.standard_normal(x.shape, dtype=np.float32) * np.float32(1e-3)
+        return m * m if second else m
+
+    return {"params": params, "step": np.asarray(ORBAX_COUNT, np.int32),
+            "opt_state": {"count": np.asarray(ORBAX_COUNT, np.int32),
+                          "lr": np.asarray(lr, np.float32),
+                          "mu": tree_map(lambda x: moment(x, False), params),
+                          "nu": tree_map(lambda x: moment(x, True), params)}}
+
+
+def _numpy_sd(module) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+
+
+def _resumed_step(make_state, converted: dict, step, batch, device: str, **kw) -> dict:
+    """``converted`` loaded into the state of ``make_state(device)`` (-> the
+    state and its parameters by name), one step on ``batch`` -> logs, the
+    gradients, the parameters' change, each stepped Adam state's step and
+    device, launches, and ms (host clock to a synchronise)."""
+    import copy
+
+    import torch
+
+    state, params = make_state(device)
+    # a copy: a CPU optimizer would keep (and step) the converted tensors themselves
+    state.load_state_dict(copy.deepcopy(converted))
+    before = {n: p.detach().cpu().clone() for n, p in params.items()}
+    _reset_counts()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = step(state, batch, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    opt_steps = {n: (state.optimizer.state[p]["step"].item(),
+                     state.optimizer.state[p]["step"].device.type)
+                 for n, p in params.items() if p.grad is not None}
+    return {"logs": {k: v.item() for k, v in logs.items()}, "ms": ms,
+            "grads": {n: p.grad.detach().cpu() for n, p in params.items() if p.grad is not None},
+            "delta": {n: p.detach().cpu() - before[n] for n, p in params.items()},
+            "opt_steps": opt_steps, "fused": state.optimizer.param_groups[0].get("fused"),
+            "launches": {**_launch_counts(), "ddim_sampler": _sampler_launches()}}
+
+
+def _resume_vs_cpu(name: str, make_state, converted, step, batch_fn, kw_fn, want: dict) -> dict:
+    """The same converted state resumed on the card and on the CPU: one step
+    each, held to the LPDM small-width tolerances (loss, step-1 gradients and
+    the parameters' change, each relative L2)."""
+    import torch
+
+    runs = {dev: _resumed_step(make_state, converted, step, batch_fn(dev), dev, **kw_fn(dev))
+            for dev in ("cpu", "cuda")}
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(gpu["logs"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["logs"].items())
+    grad_err = _grad_rel_l2(gpu["grads"], cpu["grads"])
+    delta_err = _grad_rel_l2(gpu["delta"], cpu["delta"])
+    steps = {s for s in gpu["opt_steps"].values()}
+    check(gpu["logs"].keys() == cpu["logs"].keys() and loss_err <= LPDM_LOSS_RTOL
+          and grad_err <= LPDM_GRAD_REL_L2 and delta_err <= LPDM_GRAD_REL_L2,
+          f"{name}: resumed on the card vs the CPU: loss {loss_err}, gradients {grad_err}, "
+          f"update {delta_err}")
+    check(steps == {(ORBAX_COUNT + 1.0, "cuda")} and gpu["fused"] is True,
+          f"{name}: Adam steps on the card {steps}, fused {gpu['fused']}; expected "
+          f"{ORBAX_COUNT + 1} on cuda, fused")
+    check(gpu["launches"] == want and all(v == 0 for v in cpu["launches"].values()),
+          f"{name}: launches {gpu['launches']} on the card (expected {want}), "
+          f"{cpu['launches']} on the CPU")
+    return {"loss_rel_err": loss_err, "grad_rel_l2": grad_err, "update_rel_l2": delta_err,
+            "loss_tolerance": LPDM_LOSS_RTOL, "grad_tolerance": LPDM_GRAD_REL_L2,
+            "adam_steps": sorted(steps), "launches": gpu["launches"],
+            "ms_card": gpu["ms"], "ms_cpu": cpu["ms"], "logs_card": gpu["logs"]}
+
+
+def phase_orbax_resume() -> dict:
+    """A JAX run resumed by the port from its converted train state (no JAX:
+    the trees are built in the JAX package's layout from random weights and
+    moments, ``count`` 3), through ``convert.gesture_train_state_from_jax`` /
+    ``audio_train_state_from_jax`` into the train states on the card under
+    fused AdamW / Adam:
+
+      * the LPDM at the flagship widths (batch 32, the DDIM monitor, dropout
+        off, the draws from a CPU generator): one step on the card against
+        the same resume on the CPU; 1 K3 launch, each Adam ``step`` 4 on the
+        card;
+      * stage 1 at the small widths of ``phase_train_small_vs_cpu`` (float32):
+        the same against the CPU, K1 and K2 once per ViT block;
+      * stage 1 at the flagship widths (bf16 compute, 1 quad): the host
+        seconds of mapping its 424.7 M parameters x 3 trees, and one
+        resumed step on the card, timed, with 12 K1 + 12 K2."""
+    import dataclasses
+
+    import torch
+
+    from amuse_tpu_torch import convert
+    from amuse_tpu_torch.diffusion.schedulers import make_schedule
+    from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+    from amuse_tpu_torch.train import audio as ta
+    from amuse_tpu_torch.train import gesture as tg
+
+    t_phase = time.perf_counter()
+    # the LPDM at the flagship widths
+    prior_cfg, den_cfg = PriorConfig(dropout=0.0), DenoiserConfig(dropout=0.0)
+    tcfg = tg.GestureTrainConfig()
+    src = tg.init_state(31, prior_cfg, den_cfg, tcfg, "cpu")
+    tree = jax_train_tree(flax_lpdm_tree(_numpy_sd(src.prior), _numpy_sd(src.denoiser)), 32,
+                          tcfg.learning_rate)
+    t0 = time.perf_counter()
+    converted = convert.gesture_train_state_from_jax(tree, src)
+    lpdm_map_s = time.perf_counter() - t0
+
+    def lpdm_state(dev):
+        s = tg.init_state(0, prior_cfg, den_cfg, tcfg, dev)
+        return s, {**dict(s.prior.named_parameters("prior")),
+                   **dict(s.denoiser.named_parameters("denoiser"))}
+
+    lpdm_step = tg.make_train_step(prior_cfg, den_cfg, tcfg, None, True)
+    noise = tg.draw_step_noise(torch.Generator().manual_seed(33), LPDM_BATCH, prior_cfg,
+                               make_schedule(), torch.device("cpu"))
+    lpdm = _resume_vs_cpu(
+        "LPDM (flagship)", lpdm_state, converted, lpdm_step,
+        lambda dev: _lpdm_batch(LPDM_BATCH, prior_cfg.window, den_cfg.cond_dim, 34,
+                                torch.device(dev)),
+        lambda dev: {"stochastic": False, "noise": tg.StepNoise(*(x.to(dev) for x in noise))},
+        {"attention_fwd": 0, "attention_bwd": 0, "ddim_sampler": 1})
+    lpdm.update(map_s=lpdm_map_s, params=sum(p.numel() for m in (src.prior, src.denoiser)
+                                             for p in m.parameters()))
+
+    # stage 1 at the small widths, float32
+    cfg = ta.AudioTrainConfig(learning_rate=TRAIN_LR)
+
+    def small_model():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(12)
+            return ASTDisentangler(ASTConfig(**SMALL_AST), fusion_dim=64)
+
+    src = small_model()
+    tree = jax_train_tree(flax_stage1_tree(_numpy_sd(src)), 35, cfg.learning_rate)
+    converted = convert.audio_train_state_from_jax(
+        tree, ta.AudioTrainState(src, ta.make_optimizer(src, cfg)))
+
+    def small_state(dev):
+        m = small_model().to(dev)
+        return ta.AudioTrainState(m, ta.make_optimizer(m, cfg)), dict(m.named_parameters())
+
+    s1_step, _ = ta.make_train_step(cfg)
+    depth = SMALL_AST["depth"]
+    small = _resume_vs_cpu(
+        "stage 1 (small)", small_state, converted, s1_step,
+        lambda dev: _train_batch(1, 1024, 128, 36, torch.device(dev)),
+        lambda dev: {"generator": None, "stochastic": False},
+        {"attention_fwd": depth, "attention_bwd": depth, "ddim_sampler": 0})
+    del src, converted, tree
+
+    # stage 1 at the flagship widths: the mapping's host seconds, one resumed step
+    ast_cfg = ASTConfig()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(13)
+        src = ASTDisentangler(ast_cfg)
+    n_params = sum(p.numel() for p in src.parameters())
+    tree = jax_train_tree(flax_stage1_tree(_numpy_sd(src)), 37, ta.lr_schedule(cfg, 0))
+    del src
+    with torch.device("meta"):
+        meta = ASTDisentangler(ast_cfg)
+    t0 = time.perf_counter()
+    converted = convert.audio_train_state_from_jax(
+        tree, ta.AudioTrainState(meta, ta.make_optimizer(meta, ta.AudioTrainConfig())))
+    map_s = time.perf_counter() - t0
+    del tree
+    state = ta.init_state(0, ta.AudioTrainConfig(), torch.bfloat16, ast_cfg, "cuda")
+    t0 = time.perf_counter()
+    state.load_state_dict(converted)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del converted
+    step, _ = ta.make_train_step(ta.AudioTrainConfig())
+    batch = _train_batch(1, ast_cfg.input_tdim, ast_cfg.input_fdim, 38, torch.device("cuda"))
+    _reset_counts()
+    ms = []
+    for i in range(3):  # the first resumed step, then two more
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = step(state, batch, ta.step_generator(0, 3, i, "cuda"))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v // 3 for k, v in _launch_counts().items()}
+    steps = {(state.optimizer.state[p]["step"].item(), state.optimizer.state[p]["step"].device.type)
+             for p in state.model.parameters() if p.grad is not None}
+    check(launches == {"attention_fwd": ast_cfg.depth, "attention_bwd": ast_cfg.depth},
+          f"flagship resumed stage-1 step: launches per step {launches}")
+    check(all(math.isfinite(v.item()) for v in logs.values()),
+          f"flagship resumed stage-1 step: non-finite logs {logs}")
+    check(steps == {(ORBAX_COUNT + 3.0, "cuda")} and state.optimizer.param_groups[0]["fused"],
+          f"flagship resumed stage-1 Adam steps {steps} (expected {ORBAX_COUNT + 3} on cuda)")
+    del state
+    torch.cuda.empty_cache()
+    row = {"phase": "orbax_resume", "lpdm_flagship": lpdm, "stage1_small": small,
+           "stage1_flagship": {"params": n_params, "map_s": map_s,
+                               "map_note": "3 trees (params, mu, nu) and the permutation check",
+                               "load_to_card_s": load_s, "ms_resumed_step": ms[0],
+                               "ms_next_steps": ms[1:], "launches_per_step": launches,
+                               "adam_steps_after_3": sorted(steps)},
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
                                                  "PyTorch/CUDA port on one NVIDIA GPU.")
@@ -3386,6 +3772,10 @@ def main(argv=None) -> int:
                              "flagship stage-1 and LPDM steps with and without the gradient "
                              "sync), two gloo ranks on the card against one process, the "
                              "train_gesture CLI launched through cluster/jobs.py")
+    parser.add_argument("--only-orbax", action="store_true",
+                        help="the same for a JAX run's converted train state resumed on the "
+                             "card: the flagship LPDM and small stage-1 against the CPU, the "
+                             "flagship stage-1 mapping's host seconds and resumed step")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -3419,7 +3809,7 @@ def main(argv=None) -> int:
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
             or args.only_train_step or args.only_edit or args.only_prepare_data
             or args.only_train_gesture or args.only_eval or args.only_host_tasks
-            or args.only_legacy or args.only_distributed):
+            or args.only_legacy or args.only_distributed or args.only_orbax):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -3443,6 +3833,8 @@ def main(argv=None) -> int:
             phase_legacy(smi)
         if args.only_distributed:
             run_distributed()
+        if args.only_orbax:
+            phase_orbax_resume()
         return 0
     k1_cases = phase_attention()
     k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
@@ -3456,6 +3848,7 @@ def main(argv=None) -> int:
     phase_cli_train()
     edit_rows = run_edit_and_prepare()
     lpdm = run_train_gesture()
+    phase_orbax_resume()
     evals = run_eval()
     host = run_host_tasks()
     phase_legacy(smi)

@@ -185,7 +185,8 @@ def test_refusals(released, tmp_path, monkeypatch, case):
     elif case == "run_dir_without_ast":
         root, err, match = _run_dirs(tmp_path, released[2], "bare")[0], ValueError, "AST_CKPT"
     else:
-        root, err, match = tmp_path, NotImplementedError, "orbax.*from_jax_params"
+        root, err, match = (tmp_path, NotImplementedError,
+                            r"orbax.*python orbax_to_torch\.py --src .* --dst ")
         (tmp_path / "step_00000001" / "state").mkdir(parents=True)
         (tmp_path / "step_00000001" / "metadata.json").write_text(json.dumps({"step": 1}))
     monkeypatch.setenv("AMUSE_TPU_CKPT", str(root))

@@ -1288,19 +1288,21 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path, monkeypatc
     global batch (tests/test_torch_port_parallel.py's bounds,
     ``torch_port_dist.errors``: losses rtol 1e-5, first-step gradients 1e-4
     of their largest entry, first-step parameters lr/10 where its gradient
-    exceeds 1e-6; bit-equal across the ranks): the small LPDM steps (K3 twice a
-    rank), the stage-1 steps with and without augmentation and dropout (K1
-    and K2 twice a rank), the sharded fbank and encode (within 1e-5 of one
-    call). The planted fault (each rank on its own rows' gradient) falls
-    outside those bounds."""
+    exceeds 1e-6; bit-equal across the ranks): the small LPDM steps with and
+    without dropout (K3 twice a rank), the stage-1 steps with and without
+    augmentation and dropout (K1 and K2 twice a rank), the sharded fbank and
+    encode (within 1e-5 of one call). The planted faults (each rank on its
+    own rows' gradient; each rank's dropout masks from its own generator)
+    fall outside those bounds."""
     D = _dist_workers()
 
     monkeypatch.setenv("GLOO_SOCKET_IFNAME", os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
     ranks = D.run_ranks(D.suite, 2, tmp_path, device="cuda:0", backend="gloo")
     one = {"lpdm": D.lpdm_steps(None, cuda), "stage1": D.stage1_steps(None, cuda),
+           "lpdm_dropout": D.lpdm_steps(None, cuda, dropout=0.1),
            "stage1_augmented": D.stage1_steps(None, cuda, stochastic=True, dropout=0.1),
            "encode": D.fbank_and_encode(None, cuda)}
-    for key in ("lpdm", "stage1", "stage1_augmented"):
+    for key in ("lpdm", "lpdm_dropout", "stage1", "stage1_augmented"):
         a, b = (r[key] for r in ranks)
         assert all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"]), key
         for r in (a, b):
@@ -1310,6 +1312,7 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path, monkeypatc
         for r in ranks:
             assert not D.within(D.errors(r[f"{key}_fault"], one[key])), key
     for r in ranks:
+        assert not D.within(D.errors(r["lpdm_local_masks"], one["lpdm_dropout"]))
         assert r["lpdm"]["launches"]["ddim_sampler"] == 2
         for key in ("stage1", "stage1_augmented"):
             assert r[key]["launches"]["attention_fwd"] == 2 * D.AST_KW["depth"]

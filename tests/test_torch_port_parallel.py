@@ -40,6 +40,7 @@ from amuse_tpu.train import losses as jL
 from amuse_tpu.train.fused_adam import make_fused_adam
 from amuse_tpu.utils import torch_import as ti
 from amuse_tpu_torch import convert
+from amuse_tpu_torch.models import transformer as ttr
 from amuse_tpu_torch.parallel import mesh as M
 from amuse_tpu_torch.train import audio as ta
 from amuse_tpu_torch.train import gesture as tg
@@ -186,6 +187,23 @@ class TestTwoRanks:
         assert [r["lpdm"]["rows"] for r in ranks] == [4, 4]
         assert [(r["rank"], r["size"]) for r in ranks] == [(0, 2), (1, 2)]
         _assert_close(ranks, one["lpdm"], "lpdm")
+
+    def test_lpdm_dropout_is_drawn_for_the_global_batch(self, ranks, one):
+        """Dropout 0.1 in the prior and the denoiser: each rank draws every
+        mask at the global batch's shape from the step's one generator and
+        keeps its rows, so the two ranks reproduce one process's two steps
+        within the module's bounds (and the masks did act: a logged term of
+        the first step lies over 100 times LOSS_RTOL from the dropout-0
+        step's). Each rank's masks drawn at its local
+        shape from a generator of its own (``torch_port_dist.LocalMasks``, the
+        step before this draw) fall outside them."""
+        want = D.lpdm_steps(None, CPU, dropout=0.1)
+        _assert_close(ranks, want, "lpdm_dropout")
+        plain, drop = one["lpdm"]["logs"][0], want["logs"][0]
+        assert max(abs(plain[k] / drop[k] - 1) for k in drop) > 100 * D.LOSS_RTOL
+        for r in ranks:
+            err = D.errors(r["lpdm_local_masks"], want)
+            assert not D.within(err) and max(err["loss"]) > 10 * D.LOSS_RTOL, err
 
     def test_stage1_two_ranks_equal_one_process(self, ranks, one):
         """Two stage-1 steps at 2 global quads (1 a rank), augmentation and
@@ -400,7 +418,8 @@ class TestSingleProcess:
         assert all(torch.equal(pa[n], pb[n]) for n in pa)
 
     def test_shard_rows_and_rows(self):
-        """A rank's contiguous rows; a leading dim that does not divide raises."""
+        """A rank's contiguous rows; a leading dim that does not divide raises;
+        a rank's dropout masks are its rows of the global batch's."""
         class Fake:  # the two calls shard_rows makes of a DeviceMesh
             def size(self, dim):
                 return 2
@@ -417,10 +436,13 @@ class TestSingleProcess:
         sync = M.GradSync.__new__(M.GradSync)
         sync.size, sync.rank = 2, 1
         assert sync.rows(4) == slice(4, 8)
-        gen = torch.Generator().manual_seed(7)
-        mine, other = M.rank_generator(gen, 1), M.rank_generator(gen, 0)
-        assert not torch.equal(torch.rand(4, generator=mine), torch.rand(4, generator=other))
-        assert M.rank_generator(None, 1) is None
+        # rank 1's dropout draws: the global batch's mask, its rows 4..8
+        x = torch.ones(4, 3, 5)
+        draws = sync.dropout_draws(torch.Generator().manual_seed(7))
+        assert draws[1:] == (2, 1)
+        mine = ttr.dropout(x, 0.5, True, draws)
+        whole = ttr.dropout(torch.ones(8, 3, 5), 0.5, True, torch.Generator().manual_seed(7))
+        assert torch.equal(mine, whole[4:8])
 
     def test_buckets_bound_their_bytes(self):
         """Buckets of consecutive same-dtype tensors of at most the bound; a

@@ -8,7 +8,7 @@ parent with ``mesh=None``: the single process the ranks are held against.
 This module imports torch and the port only, so a spawned rank starts
 without JAX, on the CPU here and on the card (tests/test_torch_port_gpu.py).
 
-Small widths, dropout 0: the LPDM prior and denoiser of
+Small widths, dropout 0 unless a worker says otherwise: the LPDM prior and denoiser of
 tests/test_torch_port_gesture.py (d 16, ff 32, 3 layers, 2 heads, 12-frame
 windows, 3 DDIM steps); the stage-1 AST over 64x32 fbanks, 64 wide with 2
 heads (as tests/test_torch_port_train.py's, but K1/K2's head dim 32).
@@ -26,6 +26,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from amuse_tpu_torch.audio import fbank as fb
+from amuse_tpu_torch.data import stage1
 from amuse_tpu_torch.data.cache import sharded_encoder
 from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
 from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
@@ -125,8 +126,21 @@ class OwnRowsOnly(M.GradSync):
         pass
 
 
-def _sync(mesh, fault: bool):
-    return None if mesh is None else (OwnRowsOnly if fault else M.GradSync)(mesh)
+class LocalMasks(M.GradSync):
+    """A planted fault, the LPDM step as it drew its dropout masks before they
+    were drawn for the global batch: at the rank's local shape, from a
+    generator of the rank's own (seeded from the step's seed and the rank)."""
+
+    def dropout_draws(self, generator):
+        hi, lo = np.random.SeedSequence([generator.initial_seed(), self.rank]).generate_state(
+            2, np.uint32)
+        return torch.Generator(device=generator.device).manual_seed((int(hi) << 32) | int(lo))
+
+
+def _sync(mesh, fault: bool, local_masks: bool = False):
+    if mesh is None:
+        return None
+    return (OwnRowsOnly if fault else LocalMasks if local_masks else M.GradSync)(mesh)
 
 
 def errors(got: dict, want: dict) -> dict:
@@ -176,20 +190,25 @@ def lpdm_batch(seed: int, b: int) -> dict:
 
 
 def lpdm_steps(mesh, device, batch_size: int = 8, steps: int = 2, weights=None,
-               noise=None, fault: bool = False) -> dict:
+               noise=None, fault: bool = False, dropout: float = 0.0,
+               local_masks: bool = False) -> dict:
     """``steps`` LPDM steps with the DDIM monitor over the global batch
-    ``lpdm_batch(1, batch_size)`` (this rank's rows), dropout 0, the draws
-    from ``step_generator(5, 0, i)`` unless ``noise`` (global numpy
-    ``StepNoise`` fields) is injected; ``weights`` are {"prior",
-    "denoiser"} state dicts, else the seed-0 initialisation. ``fault``
-    steps each rank on its own rows' gradient (``OwnRowsOnly``)."""
-    state = tg.init_state(0, PriorConfig(**PRIOR_KW), DenoiserConfig(**DEN_KW), TCFG, device)
+    ``lpdm_batch(1, batch_size)`` (this rank's rows), at ``dropout`` (0 by
+    default), the draws from ``step_generator(5, 0, i)`` unless ``noise``
+    (global numpy ``StepNoise`` fields) is injected; ``weights`` are
+    {"prior", "denoiser"} state dicts, else the seed-0 initialisation.
+    ``fault`` steps each rank on its own rows' gradient (``OwnRowsOnly``),
+    ``local_masks`` draws each rank's dropout masks from its own generator
+    (``LocalMasks``)."""
+    prior_cfg = PriorConfig(**{**PRIOR_KW, "dropout": dropout})
+    den_cfg = DenoiserConfig(**{**DEN_KW, "dropout": dropout})
+    state = tg.init_state(0, prior_cfg, den_cfg, TCFG, device)
     if weights is not None:
         state.prior.load_state_dict(weights["prior"])
         state.denoiser.load_state_dict(weights["denoiser"])
     M.replicate([state.prior, state.denoiser], mesh)
-    step = tg.make_train_step(PriorConfig(**PRIOR_KW), DenoiserConfig(**DEN_KW), TCFG,
-                              with_monitor=True, grad_sync=_sync(mesh, fault))
+    step = tg.make_train_step(prior_cfg, den_cfg, TCFG, with_monitor=True,
+                              grad_sync=_sync(mesh, fault, local_masks))
     local = M.shard_rows(lpdm_batch(1, batch_size), mesh)
     batch = tg.batch_to_device(local, torch.device(device))
     before, logs, grads = _counts(), [], []
@@ -251,6 +270,39 @@ def stage1_steps(mesh, device, stochastic: bool = False, quads: int = 2, steps: 
             "launches": {k: v - before[k] for k, v in _counts().items()}}
 
 
+def private_bytes() -> int:
+    """This process's private memory, ``Private_Clean + Private_Dirty`` of
+    ``/proc/self/smaps_rollup``, or summed over ``/proc/self/smaps`` where the
+    kernel has no ``smaps_rollup`` (gVisor, whose ``smaps`` counts a mapped
+    file's pages as each mapping process's own): what it holds that no other
+    process maps."""
+    keys = ("Private_Clean", "Private_Dirty")
+    proc = Path("/proc/self")
+    path = proc / "smaps_rollup" if (proc / "smaps_rollup").exists() else proc / "smaps"
+    return 1024 * sum(int(line.split()[1]) for line in path.read_text().splitlines()
+                      if line.split(":")[0] in keys)
+
+
+def stage1_bank(mesh, device, npz: str, unpack_dir: str, batch_size: int = 2) -> dict:
+    """``stage1.load_dataset`` of ``npz`` on this rank (``mesh``: the arrays
+    mapped from one copy unpacked into ``unpack_dir``) and its first shuffled
+    batch, then the same through the whole-npz read of one process
+    (``mesh=None``): each one's growth of this rank's private memory, and both
+    batches. The ranks are one host's: local rank r is rank r."""
+    os.environ["LOCAL_RANK"] = str(M.data_rank(mesh))
+    out = {}
+    for name, m in (("mapped", mesh), ("npz", None)):
+        M.barrier(mesh)
+        before = private_bytes()
+        train, _ = stage1.load_dataset(npz, m, unpack_dir)
+        batch = next(stage1.batches(train, batch_size, np.random.default_rng(0)))
+        out[f"{name}_growth"] = private_bytes() - before
+        out[f"{name}_batch"] = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        out[f"{name}_is_memmap"] = isinstance(train["fbank_bank"], np.memmap)
+        del train
+    return out
+
+
 def chunks(n: int, seed: int = 3) -> np.ndarray:
     return np.random.default_rng(seed).normal(scale=0.05, size=(n, fb.CHUNK_SAMPLES)).astype(
         np.float32)
@@ -274,10 +326,13 @@ def fbank_and_encode(mesh, device, n_fbank: int = 6, n_encode: int = 5) -> dict:
 def suite(mesh, device, weights=None, noise=None, stage1_weights=None) -> dict:
     """Every two-rank scenario of tests/test_torch_port_parallel.py in one
     spawn (a spawned rank takes seconds to import torch): the steps, the
-    steps with the planted fault, and where they are given the LPDM steps
+    LPDM steps at dropout 0.1 (and with the per-rank masks of ``LocalMasks``),
+    the steps with the planted fault, and where they are given the LPDM steps
     from ``weights`` with ``noise`` injected and the stage-1 steps over 8
     quads from ``stage1_weights``."""
     out = {"lpdm": lpdm_steps(mesh, device),
+           "lpdm_dropout": lpdm_steps(mesh, device, dropout=0.1),
+           "lpdm_local_masks": lpdm_steps(mesh, device, dropout=0.1, local_masks=True),
            "stage1": stage1_steps(mesh, device),
            "stage1_augmented": stage1_steps(mesh, device, stochastic=True, dropout=0.1),
            "lpdm_fault": lpdm_steps(mesh, device, fault=True),
