@@ -258,6 +258,20 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def fill_missing_grads(model: torch.nn.Module, frame_based_feats: bool) -> None:
+    """Give a zero gradient to each parameter that the loss did not reach but
+    that the JAX tree holds (``fusion_ablation.*``), so that Adam's L2 decay
+    adds ``wd * p`` to it and moves its moments and step count, as FusedAdam
+    mode "l2" does with the zero gradient JAX gives it. The label heads of
+    the ``frame_based_feats`` branch not traced have no JAX counterpart and
+    stay without a gradient. Every rank of a data-parallel step runs the same
+    program and fills the same set."""
+    untraced = "_enc.mlp_head." if frame_based_feats else "_enc.mlp_head_featbased."
+    for name, p in model.named_parameters():
+        if p.grad is None and p.requires_grad and untraced not in name:
+            p.grad = torch.zeros_like(p)
+
+
 def make_train_step(cfg: AudioTrainConfig = AudioTrainConfig(),
                     grad_sync: Optional[GradSync] = None):
     """-> (train_step, set_lr).
@@ -268,7 +282,8 @@ def make_train_step(cfg: AudioTrainConfig = AudioTrainConfig(),
     ``set_lr(state, epoch)`` applies the MultiStepLR schedule. With
     ``grad_sync`` the step is one rank's of a data-parallel step: ``batch``
     holds its rows, the gradients are all-reduced before the optimizer's
-    step, and the logs are the global batch's.
+    step, and the logs are the global batch's. Parameters the loss did not
+    reach get a zero gradient first (``fill_missing_grads``).
     """
 
     def train_step(state: AudioTrainState, batch: dict,
@@ -282,6 +297,7 @@ def make_train_step(cfg: AudioTrainConfig = AudioTrainConfig(),
         if grad_sync is not None:
             grad_sync.all_reduce(state.model.parameters())
             logs = grad_sync.mean_logs(logs)
+        fill_missing_grads(state.model, cfg.frame_based_feats)
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in logs.items()}

@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only-legacy  # build, then the legacy zoo and MFCC + DTW alone
     python3 chip_smoke.py --only-distributed  # build, then the data-parallel phases alone
     python3 chip_smoke.py --only-orbax  # build, then a converted JAX train state resumed
+    python3 chip_smoke.py --only-kernel-variants  # build, then the attention variants V1-V5
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -64,7 +65,14 @@ the kernels' launch counters that each went through its kernels:
     its all-reduce timed; K1, K2, K3 counted), two gloo ranks sharing the
     card against one process (the small LPDM and stage-1 steps, the sharded
     fbank and ``encode_audio``), and the ``train_gesture`` CLI launched at
-    world size 1 through ``cluster/jobs.py`` against a plain run.
+    world size 1 through ``cluster/jobs.py`` against a plain run;
+  * the attention kernel variants V1-V5 of ``benchmarks/kernel_variants.py``
+    (``ops/kernel_variants.py``): each body's forward and backward kernel
+    against its plain version at a small float32 shape and at the harness's
+    (4, 12, 1214, 64) bf16, timed beside SDPA; the entry point
+    ``kernel_variants.main`` (parity, the 12-call chains of the K1+K2
+    baseline and of each variant, timed), and one chain of each variant
+    counted (12 forward and 12 backward launches, no K1, K2 or K3).
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -748,10 +756,11 @@ def _launch_counts() -> dict:
 
 
 def _reset_counts() -> None:
-    from amuse_tpu_torch.ops import attention, denoiser_kernel
+    from amuse_tpu_torch.ops import attention, denoiser_kernel, kernel_variants
 
     attention.mha.launches = attention.mha_bwd.launches = 0
     denoiser_kernel.ddim_sample_fused.launches = 0
+    kernel_variants.variant_fwd.launches = kernel_variants.variant_bwd.launches = 0
 
 
 def _small_steps(dtype, device: str) -> tuple:
@@ -2969,11 +2978,13 @@ def _timed_ms(fn) -> float:
 
 
 def _world1_case(name: str, state_s, state_u, params_of, make_step, batch, gen,
-                 want_counts: dict, steps: int = 2, timed: int = 3) -> dict:
+                 want_counts: dict, steps: int = 2, timed: int = 3, fill=None) -> dict:
     """One flagship train step at world size 1 over NCCL. ``state_s`` steps
     with the gradient sync (recorded: the gradients before and after it);
     ``state_u``, a copy, takes the plain optimizer step on the same
-    gradients, so the check does not rest on the step's own determinism.
+    gradients (after ``fill(state_u)``, the step's own zero fill of the
+    gradients the loss did not reach, where given), so the check does not
+    rest on the step's own determinism.
     Then ms per step without and with the sync in turns (host clock to a
     synchronise), launches counted, and the all-reduce alone on CUDA events."""
     import torch
@@ -2999,6 +3010,8 @@ def _world1_case(name: str, state_s, state_u, params_of, make_step, batch, gen,
         identity.append(rec.identity)
         for p, g in zip(params_of(state_u), rec.before):
             p.grad = g
+        if fill is not None:
+            fill(state_u)
         state_u.optimizer.step()
         state_u.step += 1
         rec.before = None
@@ -3062,7 +3075,8 @@ def phase_distributed_world1() -> dict:
             lambda sync: ta.make_train_step(cfg, sync)[0],
             _train_batch(1, ast_cfg.input_tdim, ast_cfg.input_fdim, 1, torch.device("cuda")),
             lambda i: ta.step_generator(0, 0, i, "cuda"),
-            {"attention_fwd": ast_cfg.depth, "attention_bwd": ast_cfg.depth, "ddim_sampler": 0})
+            {"attention_fwd": ast_cfg.depth, "attention_bwd": ast_cfg.depth, "ddim_sampler": 0},
+            fill=lambda st: ta.fill_missing_grads(st.model, cfg.frame_based_feats))
         del s, u, model_u
         torch.cuda.empty_cache()
         tcfg, prior_cfg, den_cfg = tg.GestureTrainConfig(), PriorConfig(), DenoiserConfig()
@@ -3732,6 +3746,228 @@ def phase_orbax_resume() -> dict:
     return row
 
 
+# The attention kernel variants (ops/kernel_variants.py, csrc/attention_variants_*.cu)
+# are held to kernel_variants.kernel_limit and KERNEL_BIT_EQUAL_SHARE.
+VARIANT_MAIN_ITERS = 10  # timed chain calls a leg in the entry point's run
+
+
+def _variant_counts() -> dict:
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    return {"variant_fwd": kv.variant_fwd.launches, "variant_bwd": kv.variant_bwd.launches,
+            **_launch_counts(), "ddim_sampler": _sampler_launches()}
+
+
+def phase_kernel_variants() -> list:
+    """The attention kernel variants V1-V5 of benchmarks/kernel_variants.py.
+
+    Each body's forward (softmax, dots) and backward (v1, v4, v0) kernel
+    against its plain version at a small float32 shape with a ragged S (2, 2,
+    333, 64) and at the harness's (4, 12, 1214, 64) bf16, under
+    ``kernel_variants.kernel_limit``, each rerun bit-equal, a bf16 softmax
+    forward bit-equal to its plain version on KERNEL_BIT_EQUAL_SHARE of its
+    entries (K1's error and share against the same plain version beside it,
+    on the same inputs); at the harness shape each timed
+    beside its plain version and SDPA's forward or backward in bf16 and
+    float32. Then the entry point ``kernel_variants.main`` (parity lines, the
+    12-call chain of the K1+K2 baseline and of each variant timed, one JSON
+    line a leg), its launches counted against what its legs make; and one
+    chain of each variant alone, counters at 0 before it: 12 forward and 12
+    backward launches, no K1, K2 or K3. -> the kernels line's rows of V1-V5."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.nn.functional as F
+
+    from amuse_tpu_torch.ops import attention
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cases, at_shape = [], {}
+    for dtype, shape in ((torch.float32, (2, 2, 333, 64)),
+                         (torch.bfloat16, (kv.B, kv.H, kv.S, kv.D))):
+        name = str(dtype).replace("torch.", "")
+        harness = shape == (kv.B, kv.H, kv.S, kv.D)
+        q, k, v, do = ((torch.randn(shape, generator=g, device="cuda") * (0.5 if i < 3 else 1.0))
+                       .to(dtype) for i in range(4))
+        for body in kv.FWD_BODIES:
+            out, again = kv.variant_fwd(q, k, v, body), kv.variant_fwd(q, k, v, body)
+            ref = kv.variant_fwd_reference(q, k, v, body)
+            torch.cuda.synchronize()
+            err, top = max_err(out, ref), ref.float().abs().max().item()
+            tol = kv.kernel_limit(dtype, body, top)
+            at = f"variant forward {body} at {shape} {name}"
+            check(torch.isfinite(out.float()).all().item(), f"{at}: output not finite")
+            check(err <= tol, f"{at} disagrees with its plain version: {err} > {tol}")
+            check(torch.equal(out, again), f"{at}: two launches differ")
+            case = {"kernel": "forward", "body": body, "shape": list(shape), "dtype": name,
+                    "max_abs_err": err, "tolerance": tol}
+            if dtype == torch.bfloat16:  # the softmax rounds e where the TPU bodies do
+                case["bit_equal_share"] = share = kv.bit_equal_share(out, ref)
+                check(body != "softmax" or share >= kv.KERNEL_BIT_EQUAL_SHARE,
+                      f"{at}: bit-equal on a share {share} < {kv.KERNEL_BIT_EQUAL_SHARE} "
+                      "of its entries")
+            if harness:
+                if body == "softmax":  # K1 on the same inputs: e rounded against a running max
+                    k1 = attention.mha(q, k, v)
+                    case.update(k1_max_abs_err=max_err(k1, ref),
+                                k1_bit_equal_share=kv.bit_equal_share(k1, ref))
+                    del k1
+                case.update(ms=cuda_ms(lambda: kv.variant_fwd(q, k, v, body), **STEADY),
+                            plain_ms=cuda_ms(lambda: kv.variant_fwd_reference(q, k, v, body),
+                                             iters=3, warmup=1))
+                at_shape[body] = case
+            cases.append(case)
+            del out, again, ref
+        for body in kv.BWD_BODIES:
+            got, again = kv.variant_bwd(q, k, v, do, body), kv.variant_bwd(q, k, v, do, body)
+            refs = kv.variant_bwd_reference(q, k, v, do, body)
+            torch.cuda.synchronize()
+            case = {"kernel": "backward", "body": body, "shape": list(shape), "dtype": name,
+                    "grads": {}}
+            for what, x, ref, y in zip(("dq", "dk", "dv"), got, refs, again):
+                err, top = max_err(x, ref), ref.float().abs().max().item()
+                tol, err_l2 = kv.kernel_limit(dtype, body, top), rel_l2(x, ref)
+                at = f"variant backward {body} at {shape} {name}, {what}"
+                check(torch.isfinite(x.float()).all().item(), f"{at}: not finite")
+                check(err <= tol, f"{at} disagrees with its plain version: {err} > {tol}")
+                check(body != "v4" or err_l2 <= kv.KERNEL_V4_REL_L2,
+                      f"{at}: relative L2 error {err_l2} > {kv.KERNEL_V4_REL_L2}")
+                check(torch.equal(x, y), f"{at}: two launches differ")
+                case["grads"][what] = {"max_abs_err": err, "tolerance": tol,
+                                       "rel_l2_err": err_l2}
+            case.update(max_abs_err=max(c["max_abs_err"] for c in case["grads"].values()),
+                        err_over_tolerance=max(c["max_abs_err"] / c["tolerance"]
+                                               for c in case["grads"].values()))
+            if harness:
+                case.update(ms=cuda_ms(lambda: kv.variant_bwd(q, k, v, do, body), iters=10),
+                            plain_ms=cuda_ms(lambda: kv.variant_bwd_reference(q, k, v, do, body),
+                                             iters=3, warmup=1))
+                at_shape[body] = case
+            cases.append(case)
+            del got, again, refs
+        if harness:  # SDPA on the same work, in bf16 and in float32
+            library = {}
+            for lib_name, cast in (("bfloat16", dtype), ("float32", torch.float32)):
+                lq, lk, lv = (t.to(cast).detach().clone().requires_grad_() for t in (q, k, v))
+                lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+                ldo = do.to(cast)
+                library[lib_name] = {
+                    "forward_ms": cuda_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv),
+                                          **STEADY),
+                    "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+                        lib_out, (lq, lk, lv), ldo, retain_graph=True), **STEADY)}
+                del lq, lk, lv, lib_out, ldo
+        del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # the entry point, as a user runs it, every counter at 0 before it
+    _reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rows = kv.main(["--iters", str(VARIANT_MAIN_ITERS)])
+    main_s = time.perf_counter() - t0
+    counts = _variant_counts()
+    printed = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    calls = (2 + VARIANT_MAIN_ITERS) * kv.CHAIN_CALLS  # cuda_ms: 2 warm-up calls
+    want = {"variant_fwd": 6 + 1 + len(kv.VARIANTS) * calls,
+            "variant_bwd": 3 + len(kv.VARIANTS) * calls,
+            "attention_fwd": calls, "attention_bwd": calls, "ddim_sampler": 0}
+    check(printed == rows and len(rows) == 4 + 1 + len(kv.VARIANTS),
+          f"kernel_variants.main printed {len(printed)} lines, returned {len(rows)}")
+    check(counts == want, f"kernel_variants.main launches {counts}, expected {want}")
+    legs = {r["leg"]: r["ms"] for r in rows if "leg" in r}
+    parity = {k: v for r in rows for k, v in r.items() if k.endswith("_dev") or k == "grad_scale"}
+    check(all(math.isfinite(x) for x in [*legs.values(), *parity.values()]),
+          f"kernel_variants.main: non-finite numbers {legs} {parity}")
+
+    # one chain of each variant alone: what a TPU kernel's row counts
+    x = (torch.randn((kv.B, kv.H, kv.S, kv.D), generator=g, device="cuda") * 0.05).to(
+        torch.bfloat16)
+    per_chain = {}
+    for name in kv.VARIANTS:
+        _reset_counts()
+        loss, grad = kv.chain(kv.make_variant(name))(x)
+        torch.cuda.synchronize()
+        per_chain[name] = _variant_counts()
+        check(per_chain[name] == {"variant_fwd": 12, "variant_bwd": 12, "attention_fwd": 0,
+                                  "attention_bwd": 0, "ddim_sampler": 0},
+              f"one {name} chain launched {per_chain[name]}")
+        check(math.isfinite(loss.item()) and torch.isfinite(grad.float()).all().item(),
+              f"{name} chain: non-finite loss or gradient")
+    emit({"phase": "kernel_variants", "cases": cases, "library": library,
+          "main": {"seconds": main_s, "iters": VARIANT_MAIN_ITERS, "launches": counts,
+                   "chain_ms": legs, "parity": parity},
+          "launches_per_chain": per_chain})
+
+    # Bounds at the harness shape (bf16 inputs). Each S x S x 64 product is
+    # charged at the peak for its operands: bf16 x bf16 (q k^T, dO v^T, the
+    # bf16-rounded e, ds16 and e / r against a bf16 tensor) on the tensor
+    # cores, a float32 operand (don, e, ds, s of the float32 bodies) on the
+    # float32 units. body -> (bf16 products, float32 products, bf16 bytes moved)
+    b, h, s, d = kv.B, kv.H, kv.S, kv.D
+    product, tensor = 2.0 * b * h * s * s * d, b * h * s * d * 2.0
+    work = {"softmax": (2, 0, 4 * tensor), "dots": (2, 0, 4 * tensor),
+            "v1": (1, 4, 7 * tensor), "v4": (5, 0, 7 * tensor), "v0": (2, 3, 7 * tensor)}
+
+    def bound(body):
+        n_bf16, n_f32, nbytes = work[body]
+        ops_s = product * (n_bf16 / PEAK_BF16_FLOPS + n_f32 / PEAK_F32_FLOPS)
+        return {"bound_ms": max(ops_s, nbytes / PEAK_BYTES) * 1e3,
+                "bound_by": "operations" if ops_s > nbytes / PEAK_BYTES else "bytes"}
+
+    def timing(body, lib):
+        c = at_shape[body]
+        limits = {k: c[k] for k in ("tolerance", "err_over_tolerance", "grads",
+                                    "bit_equal_share") if k in c}
+        row = {"body": body, "shape": c["shape"], "dtype": c["dtype"],
+               "max_abs_err": c["max_abs_err"], **limits, "ms": c["ms"],
+               "plain_ms": c["plain_ms"], "library_ms": library["bfloat16"][lib],
+               "library_f32_ms": library["float32"][lib]}
+        return {**row, **bound(body)}
+
+    def launches(kind, names):
+        return sum(per_chain[n][kind] for n in names)
+
+    fwd_src = {"route": "cuda", "source": "amuse_tpu_torch/csrc/attention_variants_fwd.cu"}
+    bwd_src = {"route": "cuda", "source": "amuse_tpu_torch/csrc/attention_variants_bwd.cu"}
+    softmax = timing("softmax", "forward_ms")
+    softmax.update({k: at_shape["softmax"][k] for k in ("k1_max_abs_err", "k1_bit_equal_share")})
+    v1_bwd = timing("v1", "backward_ms")
+    kernels = [
+        {"name": "attention_variants_fwd (V1 _call_fwd)", **fwd_src,
+         "replaces": "benchmarks/kernel_variants.py:120",
+         "launches": launches("variant_fwd", ("v1_divfold", "v0_dotsonly", "v4_bf16dots")),
+         "launches_per": "one 12-call chain each of v1_divfold, v0_dotsonly, v4_bf16dots",
+         **softmax, "dots": timing("dots", "forward_ms")},
+        {"name": "attention_variants_bwd (V2 _call_bwd)", **bwd_src,
+         "replaces": "benchmarks/kernel_variants.py:143",
+         "launches": launches("variant_bwd", ("v1_divfold", "v0_dotsonly", "v4_bf16dots",
+                                              "v5_fullq_fwd")),
+         "launches_per": "one 12-call chain each of v1_divfold, v0_dotsonly, v4_bf16dots, "
+                         "v5_fullq_fwd",
+         **v1_bwd, "v4": timing("v4", "backward_ms"), "v0": timing("v0", "backward_ms")},
+        {"name": "attention_variants_fwd (V3 _call_fwd_v3)", **fwd_src,
+         "replaces": "benchmarks/kernel_variants.py:373",
+         "launches": launches("variant_fwd", ("v3_headloop",)),
+         "launches_per": "one 12-call chain of v3_headloop", **softmax},
+        {"name": "attention_variants_bwd (V4 _call_bwd_v3)", **bwd_src,
+         "replaces": "benchmarks/kernel_variants.py:393",
+         "launches": launches("variant_bwd", ("v3_headloop",)),
+         "launches_per": "one 12-call chain of v3_headloop", **v1_bwd},
+        {"name": "attention_variants_fwd (V5 make_v5.call_fwd)", **fwd_src,
+         "replaces": "benchmarks/kernel_variants.py:441",
+         "launches": launches("variant_fwd", ("v5_fullq_fwd",)),
+         "launches_per": "one 12-call chain of v5_fullq_fwd", **softmax},
+    ]
+    for row in kernels:
+        row["chain_ms"] = legs
+    return kernels
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test and measurement of the "
                                                  "PyTorch/CUDA port on one NVIDIA GPU.")
@@ -3776,6 +4012,10 @@ def main(argv=None) -> int:
                         help="the same for a JAX run's converted train state resumed on the "
                              "card: the flagship LPDM and small stage-1 against the CPU, the "
                              "flagship stage-1 mapping's host seconds and resumed step")
+    parser.add_argument("--only-kernel-variants", action="store_true",
+                        help="the same for the attention kernel variants V1-V5: each body's "
+                             "forward and backward kernel against its plain version, the "
+                             "entry point kernel_variants.main, one chain of each variant")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -3809,7 +4049,8 @@ def main(argv=None) -> int:
     if (args.only_k1 or args.only_k2 or args.only_k3 or args.only_wav_to_motion
             or args.only_train_step or args.only_edit or args.only_prepare_data
             or args.only_train_gesture or args.only_eval or args.only_host_tasks
-            or args.only_legacy or args.only_distributed or args.only_orbax):
+            or args.only_legacy or args.only_distributed or args.only_orbax
+            or args.only_kernel_variants):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -3835,6 +4076,8 @@ def main(argv=None) -> int:
             run_distributed()
         if args.only_orbax:
             phase_orbax_resume()
+        if args.only_kernel_variants:
+            phase_kernel_variants()
         return 0
     k1_cases = phase_attention()
     k1, k1_take = k1_cases[(3, 12, 1214, 64)], k1_cases[(3 * EDIT_WINDOWS, 12, 1214, 64)]
@@ -3852,6 +4095,7 @@ def main(argv=None) -> int:
     evals = run_eval()
     host = run_host_tasks()
     phase_legacy(smi)
+    variants = phase_kernel_variants()
     dp = run_distributed()
     kernels = [
         {"name": "attention_fwd", "route": "cuda",
@@ -3910,7 +4154,9 @@ def main(argv=None) -> int:
                                          for part in ("stage1", "lpdm")}
         k["launches_per_gloo_rank"] = {part: [r[name] for r in dp["gloo"][part]["launches_per_rank"]]
                                        for part in ("lpdm", "stage1", "encode")}
+    kernels += variants
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
+    check(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")
     (OUT / "kernels.json").write_text(json.dumps({"kernels": kernels, "nvidia_smi": smi,
                                                   "seconds": time.perf_counter() - t_start},
                                                  indent=1))

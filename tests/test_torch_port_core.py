@@ -228,9 +228,10 @@ def test_port_imports_neither_jax_nor_amuse_tpu():
     evaluation modules, the native loader, the host-side utilities and the
     legacy zoo among them, and every class the registry's lazy constructors
     resolve, the data parallelism and the launcher; the bpy scripts under
-    viz/blender/ are no package): no jax,
-    flax, optax, orbax or transformers, and no module named amuse_tpu or
-    amuse_tpu.* (amuse_tpu_torch shares the prefix without the dot)."""
+    viz/blender/ are no package; the attention kernel variants): no jax,
+    flax, optax, orbax or transformers, no module named amuse_tpu or
+    amuse_tpu.* (amuse_tpu_torch shares the prefix without the dot) and
+    none of the benchmark folder."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import amuse_tpu_torch\n"
@@ -239,7 +240,7 @@ def test_port_imports_neither_jax_nor_amuse_tpu():
         "from amuse_tpu_torch.models import registry\n"
         "for tag in registry.REGISTRY:\n"
         "    registry.get_model(tag)\n"
-        "banned = ('jax', 'flax', 'optax', 'orbax', 'transformers', 'amuse_tpu')\n"
+        "banned = ('jax', 'flax', 'optax', 'orbax', 'transformers', 'amuse_tpu', 'benchmarks')\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in banned]\n"
         "n = sum(k.startswith('amuse_tpu_torch') for k in sys.modules)\n"
         "need = ['amuse_tpu_torch.eval.' + m for m in ('metrics', 'embedder', 'runner')]\n"
@@ -251,7 +252,8 @@ def test_port_imports_neither_jax_nor_amuse_tpu():
         "                                                'legacy_family', 'actor', 'registry')]\n"
         "need += ['amuse_tpu_torch.diffusion.gaussian', 'amuse_tpu_torch.train.raw_diffusion',\n"
         "         'amuse_tpu_torch.audio.mfcc']\n"
-        "need += ['amuse_tpu_torch.parallel.mesh', 'amuse_tpu_torch.cluster.jobs']\n"
+        "need += ['amuse_tpu_torch.parallel.mesh', 'amuse_tpu_torch.cluster.jobs',\n"
+        "         'amuse_tpu_torch.ops.kernel_variants']\n"
         "bpy = [k for k in sys.modules if k in ('bpy', 'addon_utils')]\n"
         "missing = [m for m in need + ['amuse_tpu_torch.native.loader'] if m not in sys.modules]\n"
         "print(n, bad, missing, bpy)\n"

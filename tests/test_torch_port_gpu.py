@@ -1273,6 +1273,7 @@ def test_world1_nccl_sync_is_the_identity(cuda, tmp_path, monkeypatch):
             assert seen["same"]
             for p, g in zip(twin.parameters(), seen["before"]):
                 p.grad = g
+            ta.fill_missing_grads(twin, D.ACFG.frame_based_feats)
             plain.optimizer.step()
         assert attention.mha.launches - before == 2 * D.AST_KW["depth"]
         for (n, a), b in zip(model.named_parameters(), twin.parameters()):
@@ -1320,3 +1321,97 @@ def test_two_gloo_ranks_on_the_card_equal_one_process(cuda, tmp_path, monkeypatc
         assert r["encode"]["launches"]["attention_fwd"] == 1
         for k in ("fbank", "con", "emo", "sty"):
             torch.testing.assert_close(r["encode"][k], one["encode"][k], atol=1e-5, rtol=0)
+
+
+# The attention kernel variants (ops/kernel_variants.py), each kernel against
+# its plain version under kernel_variants.kernel_limit (and the v4 backward's
+# relative L2), a bf16 softmax forward bit-equal on KERNEL_BIT_EQUAL_SHARE of
+# its entries.
+VARIANT_CASES = [(torch.float32, (2, 2, 333, 64)), (torch.bfloat16, (4, 12, 1214, 64)),
+                 (torch.bfloat16, (1, 3, 65, 64))]
+
+
+def _variant_inputs(cuda, dtype, shape, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [(torch.randn(shape, generator=g, device=cuda) * (0.5 if i < 3 else 1.0)).to(dtype)
+            for i in range(4)]
+
+
+@pytest.mark.parametrize("body", ["softmax", "dots"])
+@pytest.mark.parametrize("dtype,shape", VARIANT_CASES)
+def test_variant_fwd_kernel_matches_plain(cuda, dtype, shape, body):
+    """csrc/attention_variants_fwd.cu against variant_fwd_reference at the
+    chip_smoke shapes (and a ragged S of 65), one launch counted, a rerun
+    bit-equal, the bf16 softmax bit-equal to the plain version on the share
+    the module asks."""
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    q, k, v, _ = _variant_inputs(cuda, dtype, shape, 3)
+    before = kv.variant_fwd.launches
+    out = kv.variant_fwd(q, k, v, body)
+    again = kv.variant_fwd(q, k, v, body)
+    torch.cuda.synchronize()
+    assert kv.variant_fwd.launches == before + 2
+    ref = kv.variant_fwd_reference(q, k, v, body).float()
+    assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out.float()).all()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= kv.kernel_limit(dtype, body, ref.abs().max().item()), err
+    assert torch.equal(out, again)
+    if body == "softmax" and dtype == torch.bfloat16:
+        share = kv.bit_equal_share(out.float(), ref)
+        assert share >= kv.KERNEL_BIT_EQUAL_SHARE, share
+
+
+@pytest.mark.parametrize("body", ["v1", "v4", "v0"])
+@pytest.mark.parametrize("dtype,shape", VARIANT_CASES)
+def test_variant_bwd_kernel_matches_plain(cuda, dtype, shape, body):
+    """csrc/attention_variants_bwd.cu against variant_bwd_reference, each
+    gradient under its limit (and v4's relative L2), a rerun bit-equal."""
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    q, k, v, do = _variant_inputs(cuda, dtype, shape, 4)
+    before = kv.variant_bwd.launches
+    got = kv.variant_bwd(q, k, v, do, body)
+    again = kv.variant_bwd(q, k, v, do, body)
+    torch.cuda.synchronize()
+    assert kv.variant_bwd.launches == before + 2
+    for name, g, ref, rerun in zip(("dq", "dk", "dv"), got,
+                                   kv.variant_bwd_reference(q, k, v, do, body), again):
+        ref = ref.float()
+        assert g.dtype == dtype and torch.isfinite(g.float()).all(), name
+        err = (g.float() - ref).abs().max().item()
+        assert err <= kv.kernel_limit(dtype, body, ref.abs().max().item()), (name, err)
+        if body == "v4":
+            assert ((g.float() - ref).norm() / ref.norm()).item() <= kv.KERNEL_V4_REL_L2, name
+        assert torch.equal(g, rerun), name
+
+
+def test_variant_chain_launch_counts(cuda):
+    """One 12-call chain of each variant: 12 forward and 12 backward launches,
+    none of K1 or K2; the loss and gradient finite."""
+    from amuse_tpu_torch.ops import attention
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    x = (torch.randn((1, 2, 200, 64), device=cuda) * 0.05).to(torch.bfloat16)
+    for name in kv.VARIANTS:
+        counts = (kv.variant_fwd.launches, kv.variant_bwd.launches, attention.mha.launches,
+                  attention.mha_bwd.launches)
+        loss, grad = kv.chain(kv.make_variant(name))(x)
+        torch.cuda.synchronize()
+        assert (kv.variant_fwd.launches - counts[0], kv.variant_bwd.launches - counts[1],
+                attention.mha.launches - counts[2], attention.mha_bwd.launches - counts[3]) \
+            == (12, 12, 0, 0), name
+        assert torch.isfinite(loss) and torch.isfinite(grad.float()).all(), name
+
+
+def test_variant_kernels_refuse_what_they_do_not_take(cuda):
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    q = torch.zeros((1, 1, 8, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim 32"):
+        kv.variant_fwd(q, q, q, "softmax")
+    q = torch.zeros((1, 1, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kv.variant_bwd(q.half(), q.half(), q.half(), q.half(), "v4")
+    with pytest.raises(ValueError, match="one device"):
+        kv.variant_fwd(q, q.cpu(), q, "softmax")

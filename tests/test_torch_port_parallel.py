@@ -208,15 +208,20 @@ class TestTwoRanks:
     def test_stage1_two_ranks_equal_one_process(self, ranks, one):
         """Two stage-1 steps at 2 global quads (1 a rank), augmentation and
         dropout off; the fusion and decoder attend across the batch, so each
-        rank runs them on the gathered global stack. The parameters without a
-        gradient (``fusion_ablation``: the step reconstructs through
-        ``fusion``; the label heads of the other branch) keep ``None`` on both
-        ranks."""
+        rank runs them on the gathered global stack. The parameters the loss
+        does not reach (``fusion_ablation``: the step reconstructs through
+        ``fusion``) get a zero gradient before the Adam step, the same set on
+        both ranks and in one process; the label heads of the other branch
+        keep ``None``."""
         want = one["stage1"]
         _assert_close(ranks, want, "stage1")
         no_grad = [r["stage1"]["no_grad"] for r in ranks]
         assert no_grad[0] == no_grad[1] == want["no_grad"]
-        assert "fusion_ablation.fc.weight" in no_grad[0]
+        assert no_grad[0] and all("_enc.mlp_head." in n for n in no_grad[0])
+        filled = [r["stage1"]["zero_filled"] for r in ranks]
+        assert filled[0] == filled[1] == want["zero_filled"]
+        assert "fusion_ablation.fc.weight" in filled[0]
+        assert all(n.startswith("fusion_ablation.") for n in filled[0])
 
     def test_stage1_augmentation_and_dropout_are_drawn_for_the_global_batch(self, ranks, one):
         """With augmentation and dropout (0.1) on, each rank draws the masks,
@@ -254,7 +259,9 @@ class TestTwoRanks:
         logged term rtol 1e-5 (atol 1e-6) at step 1; each gradient of step 1
         within 1e-4 of its largest entry; after two Adam steps (FusedAdam "l2",
         lr 1e-4) each parameter within lr/10 where both steps' gradients
-        exceed 1e-5, which is most of them."""
+        exceed 1e-5, which is most of them, and every element of those the
+        loss does not reach (``fusion_ablation``, zero gradient on both
+        sides, moved by the L2 decay alone)."""
         model, params, _ = jax_stage1_case
         mesh = jmake_mesh()
         assert mesh.devices.size == 8
@@ -281,11 +288,14 @@ class TestTwoRanks:
             assert got["logs"][0][k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
         for n, g in got["grads"][0].items():
             w = jgrads[0][n]
-            assert g.abs().max() > 0 and (g - w).abs().max() <= 1e-4 * w.abs().max() + 1e-9, n
+            assert bool(g.any()) == bool(w.any()), n  # zero only where the loss does not reach
+            assert (g - w).abs().max() <= 1e-4 * w.abs().max() + 1e-9, n
         want, moved, reached = convert.disentangler_from_jax(
             jax.tree.map(np.asarray, jparams)), 0, 0
         for n, g in got["grads"][0].items():
             keep = (jgrads[0][n].abs() > 1e-5) & (jgrads[1][n].abs() > 1e-5)
+            if not (jgrads[0][n].any() or jgrads[1][n].any()):
+                keep = torch.ones_like(keep)  # unreached: decay alone moves it
             diff = (got["params"][n] - want[n]).abs()[keep]
             assert diff.numel() == 0 or diff.max().item() <= D.LR / 10, n
             moved, reached = moved + int(keep.sum()), reached + g.numel()

@@ -454,6 +454,45 @@ class TestTrainStep:
             moved += int(keep.sum())
         assert moved > 0.75 * sum(p.numel() for n, p in model.named_parameters() if n in reached)
 
+    def test_unreached_parameters_follow_fused_adam(self, jax_stage1):
+        """fusion_ablation.* gets no gradient from the loss. JAX's FusedAdam
+        mode "l2" adds wd * p to its zero gradient, so it moves by about lr a
+        step (2.94e-4 after three); the port's zero-filled gradient does the
+        same through torch's L2 weight_decay: every element within lr/10 of
+        JAX after three steps, no mask. Each parameter with a JAX counterpart
+        has taken three Adam steps; the untraced label head has taken none."""
+        _, params, value_and_grad = jax_stage1
+        batch = _batch(3)
+        opt = make_fused_adam(b1=0.95, b2=0.999, weight_decay=5e-7, mode="l2")
+        apply = jax.jit(opt.apply)
+        jstate, jparams = opt.init(params, LR), params
+        for _ in range(3):
+            _, g = value_and_grad(jparams, batch)
+            jparams, jstate = apply(jstate, jparams, g)
+        model = _port_model(params)
+        cfg = ta.AudioTrainConfig(learning_rate=LR)
+        state = ta.AudioTrainState(model, ta.make_optimizer(model, cfg))
+        step, _ = ta.make_train_step(cfg)
+        tb = ta.batch_to_device(batch, CPU)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        for _ in range(3):
+            step(state, tb, None, stochastic=False)
+        want = convert.disentangler_from_jax(jax.tree.map(np.asarray, jparams))
+        ablation = [n for n, _ in model.named_parameters() if n.startswith("fusion_ablation.")]
+        assert ablation
+        for n, p in model.named_parameters():
+            steps = state.optimizer.state.get(p, {}).get("step")
+            if n in want:
+                assert steps is not None and int(steps) == 3, n
+            else:
+                assert ".mlp_head." in n and steps is None, n
+                assert torch.equal(p.detach(), start[n]), n
+        moved = max((want[n] - start[n]).abs().max().item() for n in ablation)
+        assert moved > 2 * LR, moved  # JAX moved them (zero biases stay): the check has teeth
+        params_now = dict(model.named_parameters())
+        for n in ablation:
+            assert (params_now[n].detach() - want[n]).abs().max().item() <= LR / 10, n
+
     def test_lr_schedule_and_set_lr(self):
         cfg = ta.AudioTrainConfig(learning_rate=1e-5, lr_decay_start_epoch=5, lr_decay_gamma=0.85)
         jcfg = jta.AudioTrainConfig(learning_rate=1e-5, lr_decay_start_epoch=5,

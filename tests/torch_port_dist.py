@@ -242,7 +242,8 @@ def stage1_steps(mesh, device, stochastic: bool = False, quads: int = 2, steps: 
     turns augmentation and dropout off, ``True`` draws both from
     ``step_generator(6, 0, i)``. ``weights`` (a state dict without the
     untraced label heads) replace the seed-11 initialisation; ``fault`` as
-    in ``lpdm_steps``. Records which parameters got no gradient."""
+    in ``lpdm_steps``. Records which parameters got no gradient and which got
+    the zero gradient of ``train.audio.fill_missing_grads``."""
     ast_cfg = ASTConfig(**(ast_kw or AST_KW))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(11)
@@ -267,6 +268,8 @@ def stage1_steps(mesh, device, stochastic: bool = False, quads: int = 2, steps: 
         M.replicate([model], mesh)
     return {"logs": logs, "grads": grads, "params_1": params_1, "params": _params(model),
             "no_grad": sorted(n for n, p in model.named_parameters() if p.grad is None),
+            "zero_filled": sorted(n for n, p in model.named_parameters()
+                                  if p.grad is not None and not p.grad.any()),
             "launches": {k: v - before[k] for k, v in _counts().items()}}
 
 
