@@ -33,45 +33,83 @@
 // resident output block (lines 101-111). Hopper blocks run in no order, so
 // the work is split, as attention_bwd.cu splits K2, into passes that each
 // own their outputs, with no atomics (two launches on the same inputs are
-// bit-equal):
+// bit-equal). The row statistics m, r and c = rowsum(dp e) / r go to a
+// float32 scratch (B*H, 3, SP), SP = S rounded up to 64, between them.
+//   bf16 V4 (v4_rows_wgmma, v4_cols_wgmma): K2's passes on wgmma, from q,
+//   k, v and dO alone (K2 reads K1's log-sum-exp and rowsum(dO o); here
+//   the rows pass takes the statistics itself).
+//     rows, q-tile-major, one block of two warpgroups per (batch*head,
+//     128 queries), Q and dO resident in shared memory, K and V streaming.
+//     Sweep 1: S = Q K^T and dP = dO V^T; m, r and rowsum(dp e) taken
+//     online (r and the sum rescaled by 2^(m_old - m_new) as the maximum
+//     grows), written as m' = m scale log2(e), 1/r and c. Sweep 2: S and dP
+//     again, ds16 = bf16(e (dp - c) / r scale) with e = 2^(s' - m')
+//     against the final maximum, then dQ += ds16 K (ds16 from registers, K
+//     read MN-major). The two sweeps run in one launch over one ring of 2n
+//     tiles.
+//     columns, kv-tile-major, one block of three warpgroups per
+//     (batch*head, 192 keys), K and V resident, Q, dO and the tile's m',
+//     1/r, c streaming: S^T = K Q^T and dP^T = V dO^T, then bf16(e / r)^T
+//     and ds16^T in registers as the A operands of dV += p16^T dO and
+//     dK += ds16^T Q, whose B operands are the same Q and dO tiles read
+//     MN-major (transpose bit); no transposing copy.
+//   Nine products are executed for the five counted (the rows pass four,
+//   the columns pass four, with S recomputed in each sweep and pass; the
+//   first design executed eleven on mma.sync). e in both passes is taken
+//   against the final maximum, as the TPU does, because the statistics are
+//   whole before they start; only r and c are summed in another order.
+//   e / r and ds are rounded to bf16 once, from float32 (1/r multiplied,
+//   where the plain version divides: a float32 ulp).
+//   Every product is wgmma m64n64k16 from swizzled shared-memory tiles
+//   (sm90_tile.cuh) filled by a 3-stage cp.async ring, zero-filled past S,
+//   one block barrier a tile; the columns pass's stages also carry the
+//   tile's 64 m', 1/r and c. cp.async and not TMA for the reasons
+//   attention_fwd.cu gives. Registers and residency (ptxas, no spill): the
+//   rows kernel holds S, dP, dQ and ds16 in 128 registers a thread,
+//   bounded to 128, so two blocks of two
+//   warpgroups share an SM at 82,944 bytes of shared memory each (Q and dO
+//   32 KB, the ring 48 KB); the columns kernel holds S^T, dP^T, dK, dV,
+//   p16 and ds16 in 164, one block of three warpgroups an SM at 101,632
+//   bytes (K and V 48 KB, the ring 48 KB and 2.25 KB of statistics).
+//   Tried and not kept: the statistics as a launch of their own before the
+//   columns pass and dQ after it (three launches, Q and dO loaded twice)
+//   took longer than the fused rows launch at the harness shape. The first
+//   design (four warps of mma.sync, 64 rows a block, synchronous tile
+//   loads, four sweeps over K in the rows pass: eleven products executed)
+//   took five times as long. The times are in PERF.md.
+//   float32 operations (V1, V0 at either input type; V4 on float32 inputs):
 //   1. rows, q-tile-major, one block per (batch*head, 64 queries): the row
 //      statistics from three sweeps over the K tiles (m; then r from
-//      e = exp(s - m); then c = rowsum(dp e) / r, which needs r first for
-//      V1's don), written to a float32 scratch (B*H, 3, SP), SP = S rounded
-//      up to 64; then dQ from a fourth sweep. V0 needs no statistics.
+//      e = exp(s - m); then c, which needs r first for V1's don); then dQ
+//      from a fourth sweep. V0 needs no statistics.
 //   2. columns, kv-tile-major, one block per (batch*head, 64 keys): dK and
 //      dV accumulated over every q tile inside the block (the TPU's
 //      sequential grid dimension becomes this loop), from q, dO and pass 1's
 //      statistics.
-//   float32 operations (V1, V0 at either input type; V4 on float32 inputs):
 //   256 threads, each a 4 x 4 block of every 64 x 64 product, float32 FMAs
 //   on operands stored k-major in shared memory (q and dO both ways), S^T
 //   and dP^T recomputed per tile; the elementwise terms go through shared
 //   memory as the A operands of dK += dS^T Q and dV += P^T X. No tensor
 //   cores: bf16 or TF32 would round don and e, which the TPU keeps float32.
-//   bf16 V4: four warps of mma.sync m16n8k16 (bf16 in, float32 accumulation),
-//   16 rows (queries in pass 1, keys in pass 2) a warp, the block's own
-//   operands as register fragments, the streamed tile in shared memory; ds16
-//   and bf16(e / r) are formed in the accumulator layout, which is the A
-//   fragment layout of the product that consumes them.
-// A simple right kernel first; the float32 products are the slow part (a
-// few ms at the harness shape; PERF.md has the times).
+//   The float32 products are the slow part (a few ms at the harness shape;
+//   PERF.md has the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_tile.cuh"
+
 namespace {
 
-// mm4x4, the row reductions, mma16816, pack_bf16, pair and the fragment loads
-// repeat those of attention_variants_fwd.cu on purpose: a shared csrc/*.cuh
-// enters the build hash of every kernel (ops/_build.py::_target), so it would
-// rebuild K1-K3.
+// mm4x4 and the row reductions repeat those of attention_variants_fwd.cu on
+// purpose: a new or changed csrc/*.cuh enters the build hash of every kernel
+// (ops/_build.py::_target) and would rebuild K1-K3.
 
 constexpr int D = 64;
 constexpr int TILE = 64;
-constexpr int V1 = 0, V4 = 1, V0 = 2;
+constexpr int V1 = 0, V4 = 1, V0 = 2;  // C body codes
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -362,253 +400,306 @@ cols_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   }
 }
 
-// ------------------------------------------------------------ bf16, V4 only
+// ------------------------------------------------------- bf16 v4, wgmma
 
-constexpr int M_THREADS = 128;  // four warps, 16 rows each
-constexpr int LDH = D + 8;      // bf16 row stride of a shared tile (144 bytes)
+constexpr int W_TILE = 64;       // rows of a streamed tile
+constexpr int W_STAGES = 3;      // stages of the ring: two tiles load while one is at work
+constexpr int W_LOADERS = 256;   // threads that issue the copies (every block has at least these)
+constexpr int ROWS_WGS = 2;      // warpgroups (64 queries each) of a rows block
+constexpr int COLS_WGS = 3;      // warpgroups (64 keys each) of a columns block
+constexpr int W_STAT_BYTES = 3 * W_TILE * 4;  // a stage's m', 1/r and c (columns pass)
+using Tl = sm90::Tile<D>;
+constexpr int ROWS_SMEM = 1024 + (2 * 64 * ROWS_WGS + 2 * W_STAGES * W_TILE) * Tl::ROW_BYTES;
+constexpr int COLS_SMEM =
+    1024 + (2 * 64 * COLS_WGS + 2 * W_STAGES * W_TILE) * Tl::ROW_BYTES + W_STAGES * W_STAT_BYTES;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// S (or S^T) and dP (or dP^T) of the warpgroup's 64 rows against a 64-row
+// tile: acc = A B^T over the head dim, both pairs from shared memory.
+__device__ __forceinline__ void two_products(float (&s)[32], float (&dp)[32], uint64_t a_s,
+                                             uint64_t b_s, uint64_t a_dp, uint64_t b_dp) {
+  using namespace sm90;
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
+  product_kmajor<D>(s, a_s, b_s);
+  product_kmajor<D>(dp, a_dp, b_dp);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
 }
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int S) {
-  for (int c = threadIdx.x; c < TILE * D / 8; c += M_THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * LDH + col) = v;
-  }
-}
-// A fragments (16 rows x 64) of rows r_lo and r_lo + 8 of a (S, 64) matrix
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], const __nv_bfloat16* src,
-                                             int r_lo, int S, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const __nv_bfloat16* lo = src + (long long)r_lo * D + 16 * kk + 2 * t;
-    const __nv_bfloat16* hi = lo + 8 * D;
-    a[kk][0] = r_lo < S ? *reinterpret_cast<const uint32_t*>(lo) : 0u;
-    a[kk][1] = r_lo + 8 < S ? *reinterpret_cast<const uint32_t*>(hi) : 0u;
-    a[kk][2] = r_lo < S ? *reinterpret_cast<const uint32_t*>(lo + 8) : 0u;
-    a[kk][3] = r_lo + 8 < S ? *reinterpret_cast<const uint32_t*>(hi + 8) : 0u;
-  }
-}
-// s (16 x 64) = A (fragments, 16 x 64) B^T, B the 64-row shared tile (head
-// dim contiguous): Q K^T, dO V^T, K Q^T, V dO^T
-__device__ __forceinline__ void product_rows(float (&s)[8][4], const uint32_t (&a)[4][4],
-                                             const __nv_bfloat16* tile, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat16* b = tile + (8 * j + g) * LDH + 16 * kk + 2 * t;
-      mma16816(s[j], a[kk], *reinterpret_cast<const uint32_t*>(b),
-               *reinterpret_cast<const uint32_t*>(b + 8));
-    }
-}
-// o (16 x 64) += P (16 x 64, fragments; its columns are the tile's rows) T,
-// T the 64-row shared tile: ds16 K, bf16(e/r)^T dO, ds16^T Q
-__device__ __forceinline__ void accumulate(float (&o)[8][4], const uint32_t (&p)[4][4],
-                                           const __nv_bfloat16* tile, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat16* b = tile + (16 * kk + 2 * t) * LDH + 8 * j + g;
-      mma16816(o[j], p[kk], pair(b, b + LDH), pair(b + 8 * LDH, b + 9 * LDH));
-    }
-}
-__device__ __forceinline__ void zero(float (&a)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
-}
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&a)[8][4], int r_lo,
-                                           int S, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * t;
-    if (r_lo < S)
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)r_lo * D + c) =
-          __floats2bfloat162_rn(a[j][0], a[j][1]);
-    if (r_lo + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(base + (long long)(r_lo + 8) * D + c) =
-          __floats2bfloat162_rn(a[j][2], a[j][3]);
-  }
-}
+
 __device__ __forceinline__ float quad_sum(float x) {  // the four threads of a row
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Pass 1 of V4 on the tensor cores: statistics and dQ.
-__global__ void __launch_bounds__(M_THREADS)
-rows_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-          float* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int S, int SP,
-          float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[TILE * LDH];
-  __shared__ __align__(16) __nv_bfloat16 Vs[TILE * LDH];
-  const long long base = (long long)blockIdx.y * S * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r_lo = blockIdx.x * TILE + 16 * warp + g;  // and r_lo + 8
-  const int n_tiles = (S + TILE - 1) / TILE;
-  uint32_t qa[4][4], da[4][4];
-  load_a_frags(qa, q + base, r_lo, S, t);
-  load_a_frags(da, dout + base, r_lo, S, t);
-  float s[8][4], dp[8][4];
-  float m[2] = {-INFINITY, -INFINITY}, r[2] = {0.f, 0.f}, c[2] = {0.f, 0.f};  // rows lo, hi
+// The rows pass, q-tile-major: one block of ROWS_WGS warpgroups per
+// (batch*head, 128-query tile), Q and dO resident, K and V streaming.
+// Sweep 1: m' = rowmax(q k^T) scale log2(e), r and c, taken online and
+// written to stats[(bh * 3 + {0, 1, 2}) * SP + row] as m', 1/r and c (rows
+// S..SP: +inf, 0, 0, so the columns pass gives their queries e = 0); sweep
+// 2: dQ += ds16 K from those statistics.
+__global__ void __launch_bounds__(128 * ROWS_WGS, 2)
+v4_rows_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+              float* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int S, int SP,
+              int row_tiles, float scale, float scale_log2) {
+  using namespace sm90;
+  constexpr int ROWS = 64 * ROWS_WGS;
+  constexpr int OWN_BYTES = ROWS * Tl::ROW_BYTES, TILE_BYTES = W_TILE * Tl::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + OWN_BYTES;
+  const uint32_t ring_s = do_s + OWN_BYTES;  // stage i: K at + 2 i TILE_BYTES, then V
 
-  for (int kt = 0; kt < n_tiles; ++kt) {  // sweep 1: m
-    __syncthreads();
-    load_tile_bf16(Ks, k + base, kt * TILE, S);
-    __syncthreads();
-    product_rows(s, qa, Ks, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (kt * TILE + 8 * j + 2 * t + (e & 1) < S) m[e / 2] = fmaxf(m[e / 2], s[j][e] * scale);
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x / row_tiles;
+  const int q0 = (blockIdx.x % row_tiles) * ROWS;
+  const int r_lo = q0 + wg * 64 + warp * 16 + g, r_hi = r_lo + 8;
+  const bool active = q0 + wg * 64 < S;  // warpgroup-uniform; its rows then lie below SP
+  const bool loader = threadIdx.x < W_LOADERS;
+  const long long base = (long long)bh * S * D;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+  const int n = (S + W_TILE - 1) / W_TILE;     // key tiles
+  const int tiles = 2 * n;  // the ring runs over both sweeps' tiles
+
+  auto stage_of = [&](int i) { return ring_s + (i % W_STAGES) * 2 * TILE_BYTES; };
+  auto load = [&](int i) {  // one commit group per call, empty past the last tile
+    if (i < tiles && loader) {
+      const int row0 = (i % n) * W_TILE;
+      load_tile_async<D, W_TILE, W_LOADERS>(stage_of(i), kb, D, row0, S);
+      load_tile_async<D, W_TILE, W_LOADERS>(stage_of(i) + TILE_BYTES, vb, D, row0, S);
+    }
+    cp_async_commit();
+  };
+  if (loader) {
+    load_tile_async<D, ROWS, W_LOADERS>(q_s, q + base, D, q0, S);
+    load_tile_async<D, ROWS, W_LOADERS>(do_s, dout + base, D, q0, S);
   }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
-  }
-  for (int kt = 0; kt < n_tiles; ++kt) {  // sweep 2: r
-    __syncthreads();
-    load_tile_bf16(Ks, k + base, kt * TILE, S);
-    __syncthreads();
-    product_rows(s, qa, Ks, g, t);
+  for (int i = 0; i < W_STAGES - 1; ++i) load(i);  // Q and dO ride in the first group
+
+  float* st = stats + (long long)bh * 3 * SP;
+  // m', 1/r and c of rows lo and hi; r and rowsum(dp e) while sweep 1 runs
+  float m_lo = -INFINITY, m_hi = -INFINITY, ri_lo = 0.f, ri_hi = 0.f, c_lo = 0.f, c_hi = 0.f;
+  float r_lo_sum = 0.f, r_hi_sum = 0.f, u_lo = 0.f, u_hi = 0.f;
+  const uint64_t q_desc = Tl::desc(q_s + wg * 64 * Tl::ROW_BYTES);
+  const uint64_t do_desc = Tl::desc(do_s + wg * 64 * Tl::ROW_BYTES);
+  float dqa[D / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<W_STAGES - 2>();  // this thread's part of tile i has landed
+    fence_proxy_async();
+    __syncthreads();  // tile i is whole; tile i-1 is no longer read
+    load(i + W_STAGES - 1);  // into the stage tile i-1 held
+    if (!active) continue;
+
+    const uint32_t k_t = stage_of(i), v_t = k_t + TILE_BYTES;
+    const int key0 = (i % n) * W_TILE;
+    const bool tail = key0 + W_TILE > S;  // keys at or past S: e = 0
+    float sc[32], dp[32];  // S and dP: rows = queries, columns = keys
+    two_products(sc, dp, q_desc, Tl::desc(k_t), do_desc, Tl::desc(v_t));
+    if (tail) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (kt * TILE + 8 * j + 2 * t + (e & 1) < S) r[e / 2] += expf(s[j][e] * scale - m[e / 2]);
-  }
-  r[0] = quad_sum(r[0]);
-  r[1] = quad_sum(r[1]);
-  for (int kt = 0; kt < n_tiles; ++kt) {  // sweep 3: c = rowsum(dp e) / r
-    __syncthreads();
-    load_tile_bf16(Ks, k + base, kt * TILE, S);
-    load_tile_bf16(Vs, v + base, kt * TILE, S);
-    __syncthreads();
-    product_rows(s, qa, Ks, g, t);
-    product_rows(dp, da, Vs, g, t);
+      for (int jb = 0; jb < 8; ++jb)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int e = 0; e < 2; ++e)
+          if (key0 + jb * 8 + 2 * t + e >= S) sc[4 * jb + e] = sc[4 * jb + 2 + e] = -INFINITY;
+    }
+
+    if (i < n) {  // sweep 1: m, r and rowsum(dp e), online
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (kt * TILE + 8 * j + 2 * t + (e & 1) < S)
-          c[e / 2] += dp[j][e] * expf(s[j][e] * scale - m[e / 2]);
-  }
-  c[0] = quad_sum(c[0]) / r[0];
-  c[1] = quad_sum(c[1]) / r[1];
-  if (t == 0)
-    for (int h = 0; h < 2; ++h)
-      if (r_lo + 8 * h < S) {
-        float* st = stats + (long long)blockIdx.y * 3 * SP + r_lo + 8 * h;
-        st[0] = m[h];
-        st[SP] = r[h];
-        st[2 * SP] = c[h];
+      for (int jb = 0; jb < 8; ++jb) {
+        mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * jb], sc[4 * jb + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * jb + 2], sc[4 * jb + 3]));
       }
-  float dqa[8][4];
-  zero(dqa);
-  for (int kt = 0; kt < n_tiles; ++kt) {  // sweep 4: dQ += ds16 K
-    __syncthreads();
-    load_tile_bf16(Ks, k + base, kt * TILE, S);
-    load_tile_bf16(Vs, v + base, kt * TILE, S);
-    __syncthreads();
-    product_rows(s, qa, Ks, g, t);
-    product_rows(dp, da, Vs, g, t);
-    uint32_t dsa[4][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      // finite: every tile has a key below S
+      const float mn_lo = fmaxf(m_lo, mx_lo * scale_log2), mn_hi = fmaxf(m_hi, mx_hi * scale_log2);
+      const float a_lo = ex2(m_lo - mn_lo), a_hi = ex2(m_hi - mn_hi);  // 0 on the first tile
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      r_lo_sum *= a_lo;
+      u_lo *= a_lo;
+      r_hi_sum *= a_hi;
+      u_hi *= a_hi;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float e_lo = ex2(fmaf(sc[4 * jb + e], scale_log2, -mn_lo));
+          const float e_hi = ex2(fmaf(sc[4 * jb + 2 + e], scale_log2, -mn_hi));
+          r_lo_sum += e_lo;
+          u_lo = fmaf(dp[4 * jb + e], e_lo, u_lo);
+          r_hi_sum += e_hi;
+          u_hi = fmaf(dp[4 * jb + 2 + e], e_hi, u_hi);
+        }
+      if (i == n - 1) {  // the row's statistics are whole
+        r_lo_sum = quad_sum(r_lo_sum);
+        r_hi_sum = quad_sum(r_hi_sum);
+        ri_lo = 1.f / r_lo_sum;
+        ri_hi = 1.f / r_hi_sum;
+        c_lo = quad_sum(u_lo) / r_lo_sum;
+        c_hi = quad_sum(u_hi) / r_hi_sum;
+        if (t == 0) {
+          const bool in_lo = r_lo < S, in_hi = r_hi < S;
+          st[r_lo] = in_lo ? m_lo : INFINITY;
+          st[SP + r_lo] = in_lo ? ri_lo : 0.f;
+          st[2 * SP + r_lo] = in_lo ? c_lo : 0.f;
+          st[r_hi] = in_hi ? m_hi : INFINITY;
+          st[SP + r_hi] = in_hi ? ri_hi : 0.f;
+          st[2 * SP + r_hi] = in_hi ? c_hi : 0.f;
+        }
+      }
+      continue;
+    }
+
+    // dQ += ds16 K, ds16 = bf16(e (dp - c) / r scale), e against the final m
+    const float f_lo = ri_lo * scale, f_hi = ri_hi * scale;
+    uint32_t dsa[4][4];  // ds16, as A fragments
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
       float ds[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const float x = expf(s[j][e] * scale - m[h]);
-        ds[e] = kt * TILE + 8 * j + 2 * t + (e & 1) < S ? x * (dp[j][e] - c[h]) / r[h] * scale
-                                                        : 0.f;
+      for (int e = 0; e < 2; ++e) {
+        ds[e] = ex2(fmaf(sc[4 * jb + e], scale_log2, -m_lo)) * (dp[4 * jb + e] - c_lo) * f_lo;
+        ds[2 + e] =
+            ex2(fmaf(sc[4 * jb + 2 + e], scale_log2, -m_hi)) * (dp[4 * jb + 2 + e] - c_hi) * f_hi;
       }
-      dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      dsa[jb / 2][(jb % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    accumulate(dqa, dsa, Ks, g, t);
+    fence_regs(dqa);
+    wgmma_fence();
+    accumulate_mnmajor<D>(dqa, dsa, Tl::desc(k_t));  // K read MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
   }
-  store_rows(dq + base, dqa, r_lo, S, t);
+  cp_async_wait<0>();
+  if (active) store_rows<D>(dq + base, D, dqa, r_lo, S, t, 1.f, 1.f);
 }
 
-// Pass 2 of V4 on the tensor cores: dK and dV of 64 keys over every q tile.
-__global__ void __launch_bounds__(M_THREADS)
-cols_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-          const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-          const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
-          __nv_bfloat16* __restrict__ dv, int S, int SP, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[TILE * LDH];
-  __shared__ __align__(16) __nv_bfloat16 dOs[TILE * LDH];
-  __shared__ float ms[TILE], rs[TILE], cs[TILE];
-  const long long base = (long long)blockIdx.y * S * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int kr_lo = blockIdx.x * TILE + 16 * warp + g;  // keys kr_lo and kr_lo + 8
-  const int n_tiles = (S + TILE - 1) / TILE;
-  const float* st = stats + (long long)blockIdx.y * 3 * SP;
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, k + base, kr_lo, S, t);
-  load_a_frags(va, v + base, kr_lo, S, t);
-  float dka[8][4], dva[8][4], s[8][4], dp[8][4];
-  zero(dka);
-  zero(dva);
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * TILE;
-    __syncthreads();
-    load_tile_bf16(Qs, q + base, q0, S);
-    load_tile_bf16(dOs, dout + base, q0, S);
-    if (threadIdx.x < TILE) {
-      const bool in = q0 + threadIdx.x < S;
-      ms[threadIdx.x] = in ? st[q0 + threadIdx.x] : 0.f;
-      rs[threadIdx.x] = in ? st[SP + q0 + threadIdx.x] : 1.f;
-      cs[threadIdx.x] = in ? st[2 * SP + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-    product_rows(s, ka, Qs, g, t);   // S^T: rows keys, columns queries
-    product_rows(dp, va, dOs, g, t); // dP^T
-    uint32_t pa[4][4], dsa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = 8 * j + 2 * t + (e & 1);
-        const bool in = q0 + qc < S && kr_lo + 8 * (e / 2) < S;
-        const float x = expf(s[j][e] * scale - ms[qc]);
-        p[e] = in ? x / rs[qc] : 0.f;
-        ds[e] = in ? x * (dp[j][e] - cs[qc]) / rs[qc] * scale : 0.f;
+// The columns pass, kv-tile-major: dK and dV of one block of COLS_WGS x 64
+// keys (K and V resident) over every 64-query tile (Q, dO and the tile's
+// m', 1/r, c streaming): S^T = K Q^T, dP^T = V dO^T, then dV += p16^T dO
+// and dK += ds16^T Q with p16 = bf16(e / r) and ds16 in registers as the A
+// operands and the same Q and dO tiles read MN-major. A query past S has
+// m' = +inf, so e = 0; a key past S is computed and not written.
+__global__ void __launch_bounds__(128 * COLS_WGS, 1)
+v4_cols_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, int S, int SP, int key_tiles, float scale,
+              float scale_log2) {
+  using namespace sm90;
+  constexpr int ROWS = 64 * COLS_WGS;
+  constexpr int OWN_BYTES = ROWS * Tl::ROW_BYTES, TILE_BYTES = W_TILE * Tl::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + OWN_BYTES;
+  const uint32_t ring_s = v_s + OWN_BYTES;  // stage i: Q at + 2 i TILE_BYTES, then dO
+  const uint32_t stat_s = ring_s + W_STAGES * 2 * TILE_BYTES;  // stage i: 64 m', 64 1/r, 64 c
+  const uint8_t* stat_p = smem_raw + (stat_s - smem_u32(smem_raw));
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x / key_tiles;
+  const int key0 = (blockIdx.x % key_tiles) * ROWS;
+  const int key_lo = key0 + wg * 64 + warp * 16 + g;
+  const bool active = key0 + wg * 64 < S;  // warpgroup-uniform
+  const bool loader = threadIdx.x < W_LOADERS;
+  const long long base = (long long)bh * S * D;
+  const __nv_bfloat16* qb = q + base;
+  const __nv_bfloat16* db = dout + base;
+  const float* sb = stats + (long long)bh * 3 * SP;
+  const int n = SP / W_TILE;  // query tiles; the statistics are padded to SP
+
+  auto load = [&](int tile) {  // one commit group per call, empty past the last tile
+    if (tile < n && loader) {
+      const int stage = tile % W_STAGES;
+      const uint32_t dst = ring_s + stage * 2 * TILE_BYTES;
+      load_tile_async<D, W_TILE, W_LOADERS>(dst, qb, D, tile * W_TILE, S);
+      load_tile_async<D, W_TILE, W_LOADERS>(dst + TILE_BYTES, db, D, tile * W_TILE, S);
+      if (threadIdx.x < 48) {  // 16 chunks each of m', 1/r and c
+        const int which = threadIdx.x / 16, c = threadIdx.x % 16;
+        cp_async16(stat_s + stage * W_STAT_BYTES + threadIdx.x * 16,
+                   sb + (long long)which * SP + tile * W_TILE + c * 4, 16);
       }
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      dsa[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    accumulate(dva, pa, dOs, g, t);
-    accumulate(dka, dsa, Qs, g, t);
+    cp_async_commit();
+  };
+  if (loader) {
+    load_tile_async<D, ROWS, W_LOADERS>(k_s, k + base, D, key0, S);
+    load_tile_async<D, ROWS, W_LOADERS>(v_s, v + base, D, key0, S);
   }
-  store_rows(dk + base, dka, kr_lo, S, t);
-  store_rows(dv + base, dva, kr_lo, S, t);
+#pragma unroll
+  for (int i = 0; i < W_STAGES - 1; ++i) load(i);  // K and V ride in the first group
+
+  const uint64_t k_desc = Tl::desc(k_s + wg * 64 * Tl::ROW_BYTES);
+  const uint64_t v_desc = Tl::desc(v_s + wg * 64 * Tl::ROW_BYTES);
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<W_STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    load(j + W_STAGES - 1);
+    if (!active) continue;
+
+    const int stage = j % W_STAGES;
+    const uint32_t q_t = ring_s + stage * 2 * TILE_BYTES, do_t = q_t + TILE_BYTES;
+    const float* Ms = reinterpret_cast<const float*>(stat_p + stage * W_STAT_BYTES);
+    const float* Rs = Ms + W_TILE;
+    const float* Cs = Rs + W_TILE;
+    float st[32], dpt[32];  // S^T and dP^T: rows = keys, columns = queries
+    two_products(st, dpt, k_desc, Tl::desc(q_t), v_desc, Tl::desc(do_t));
+
+    uint32_t pa[4][4], dsa[4][4];  // p16^T and ds16^T, as A fragments
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      const float2 M = *reinterpret_cast<const float2*>(Ms + jb * 8 + 2 * t);
+      const float2 R = *reinterpret_cast<const float2*>(Rs + jb * 8 + 2 * t);
+      const float2 C = *reinterpret_cast<const float2*>(Cs + jb * 8 + 2 * t);
+      const float e0 = ex2(fmaf(st[4 * jb], scale_log2, -M.x));
+      const float e1 = ex2(fmaf(st[4 * jb + 1], scale_log2, -M.y));
+      const float e2 = ex2(fmaf(st[4 * jb + 2], scale_log2, -M.x));
+      const float e3 = ex2(fmaf(st[4 * jb + 3], scale_log2, -M.y));
+      const float f0 = R.x * scale, f1 = R.y * scale;
+      pa[jb / 2][(jb % 2) * 2] = pack_bf16(e0 * R.x, e1 * R.y);
+      pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(e2 * R.x, e3 * R.y);
+      dsa[jb / 2][(jb % 2) * 2] =
+          pack_bf16(e0 * (dpt[4 * jb] - C.x) * f0, e1 * (dpt[4 * jb + 1] - C.y) * f1);
+      dsa[jb / 2][(jb % 2) * 2 + 1] =
+          pack_bf16(e2 * (dpt[4 * jb + 2] - C.x) * f0, e3 * (dpt[4 * jb + 3] - C.y) * f1);
+    }
+
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+    accumulate_mnmajor<D>(dva, pa, Tl::desc(do_t));  // dV += p16^T dO
+    accumulate_mnmajor<D>(dka, dsa, Tl::desc(q_t));  // dK += ds16^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  store_rows<D>(dk + base, D, dka, key_lo, S, t, 1.f, 1.f);
+  store_rows<D>(dv + base, D, dva, key_lo, S, t, 1.f, 1.f);
 }
 
 // ----------------------------------------------------------------- launch
@@ -640,19 +731,30 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        float* stats, void* dq, void* dk, void* dv, int BH, int S, int SP,
-                        float scale, cudaStream_t st) {
+// the rows pass (both sweeps), then the columns pass
+cudaError_t launch_v4_bf16(const void* q, const void* k, const void* v, const void* dout,
+                           float* stats, void* dq, void* dk, void* dv, int BH, int S, int SP,
+                           float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
-  const dim3 grid((S + TILE - 1) / TILE, BH);
+  static cudaError_t attr = [] {
+    constexpr auto A = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    const cudaError_t e = cudaFuncSetAttribute(v4_rows_wgmma, A, ROWS_SMEM);
+    return e == cudaSuccess ? cudaFuncSetAttribute(v4_cols_wgmma, A, COLS_SMEM) : e;
+  }();
+  if (attr != cudaSuccess) return attr;
   const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
            *vb = static_cast<const bf*>(v), *db = static_cast<const bf*>(dout);
-  rows_bf16<<<grid, M_THREADS, 0, st>>>(qb, kb, vb, db, stats, static_cast<bf*>(dq), S, SP,
-                                         scale);
-  const cudaError_t err = cudaGetLastError();
+  const int row_tiles = (S + 64 * ROWS_WGS - 1) / (64 * ROWS_WGS);
+  const int key_tiles = (S + 64 * COLS_WGS - 1) / (64 * COLS_WGS);
+  const unsigned rows_grid = (unsigned)row_tiles * BH, cols_grid = (unsigned)key_tiles * BH;
+  const float sl2 = scale * sm90::LOG2E;
+  v4_rows_wgmma<<<rows_grid, 128 * ROWS_WGS, ROWS_SMEM, st>>>(
+      qb, kb, vb, db, stats, static_cast<bf*>(dq), S, SP, row_tiles, scale, sl2);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cols_bf16<<<grid, M_THREADS, 0, st>>>(qb, kb, vb, db, stats, static_cast<bf*>(dk),
-                                         static_cast<bf*>(dv), S, SP, scale);
+  v4_cols_wgmma<<<cols_grid, 128 * COLS_WGS, COLS_SMEM, st>>>(
+      qb, kb, vb, db, stats, static_cast<bf*>(dk), static_cast<bf*>(dv), S, SP, key_tiles, scale,
+      sl2);
   return cudaGetLastError();
 }
 
@@ -671,9 +773,9 @@ extern "C" {
 
 // q, k, v, dout, dq, dk, dv: contiguous (B, H, S, 64) tensors of one type,
 // 16-byte aligned; dtype 0 = float32, 1 = bfloat16; body 0 = V1, 1 = V4,
-// 2 = V0; stats: float32 scratch of B * H * 3 * SP values, SP = S rounded up
-// to a multiple of 64. Launches the two passes on `stream` and returns the
-// first launch error (cudaGetLastError()), or 0.
+// 2 = V0; stats: float32 scratch of B * H * 3 * SP values, SP = S rounded up to a multiple of 64.
+// Launches the passes on `stream` and returns the first launch error
+// (cudaGetLastError()), or 0.
 int variant_bwd(const void* q, const void* k, const void* v, const void* dout, void* stats,
                 void* dq, void* dk, void* dv, int dtype, int body, int B, int H, int S,
                 float scale, void* stream) {
@@ -684,7 +786,7 @@ int variant_bwd(const void* q, const void* k, const void* v, const void* dout, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(stats);
   if (dtype == 1 && body == V4)
-    return launch_bf16(q, k, v, dout, w, dq, dk, dv, B * H, S, SP, scale, st);
+    return launch_v4_bf16(q, k, v, dout, w, dq, dk, dv, B * H, S, SP, scale, st);
   if (dtype == 1)
     return launch_body<__nv_bfloat16>(body, q, k, v, dout, w, dq, dk, dv, B * H, S, SP, scale,
                                       st);

@@ -19,51 +19,231 @@
 // them to float32's minimum, whose exp is 0).
 //
 // Bound on the H100: operations. 4 S^2 D per (batch, head) for the two
-// products (the softmax's second pass recomputes q k^T: 6 S^2 D executed).
-// At the harness shape (4, 12, 1214, 64) bf16: 18.1 GFLOP, 0.0183 ms at
-// 989 TFLOP/s; the bytes (q, k, v read, out written: 29.8 MB) take 0.0089
-// ms at 3.35 TB/s.
+// products. The softmax executes three (its first pass recomputes q k^T:
+// 6 S^2 D). At the harness shape (4, 12, 1214, 64) bf16: 18.1 GFLOP
+// counted, 27.2 executed, 0.0183 ms at 989 TFLOP/s; the bytes (q, k, v
+// read, out written: 29.8 MB) take 0.0089 ms at 3.35 TB/s.
 //
-// Design. One block of four warps per (batch*head, 64-row q tile), 16 rows
-// a warp; K (and V) stream through shared memory in 64-key tiles.
-//   bf16: every product is mma.sync m16n8k16 (bf16 in, float32
-//   accumulation). Q's fragments stay in registers for the block's life;
-//   S = Q K^T reads K's fragments from shared memory (rows padded to 72
-//   values, so the eight rows a fragment load touches fall in distinct
-//   banks). The accumulator layout of S is that of the A fragment of the
-//   next product, so P = bf16(e) goes to O += P V without leaving the
-//   registers; V's B fragments are gathered two bf16 at a time.
-//   float32: 256 threads, each a 4 x 4 block of S and of O, float32 FMAs on
-//   operands stored k-major in shared memory (no tensor cores: TF32 would
-//   round the inputs); P goes through shared memory as the A operand of
-//   O += P V.
-// A simple right kernel first: no cp.async ring, one block barrier pair per
-// tile, its times in PERF.md.
+// Design of the bf16 softmax (softmax_fwd_wgmma): K1's building blocks
+// (attention_fwd.cu, sm90_tile.cuh). One block of two warpgroups (256
+// threads) per (batch*head, 128-row q tile), 64 rows a warpgroup; the grid
+// is one dimension with the q tile fastest, so the blocks of one head run
+// together and share K and V in L2. Both passes stream through one 4-stage
+// ring of 64-key tiles filled by cp.async (swizzled, zero-filled past S):
+// the ring runs over 2n virtual tiles, the n K tiles of pass 1 (V's half
+// of the stage is not loaded) and then the n (K, V) tiles of pass 2, so
+// pass 2's first tiles load while pass 1 ends; two tiles load ahead of the
+// one at work, one block barrier a tile. cp.async and not TMA for the
+// reasons attention_fwd.cu gives (a copy costs a thread a few instructions
+// a tile; its zero-fill serves the ragged S with no transaction count).
+//   Pass 1: S = Q K^T as wgmma m64n64k16, both operands from shared memory
+//   through matrix descriptors; the row maximum of the raw products over
+//   the keys below S, reduced over the four threads of a row at the end.
+//   Pass 2: S again; e = 2^(s' - m') with s' = (q k^T) scale log2(e) folded
+//   into one FMA and m' = m log2(e); r summed from the float32 e;
+//   P = bf16(e) in registers as the A operand of O += P V, V read MN-major
+//   (transpose bit), no transposing copy; out = O / r, a division as the
+//   plain version takes it.
+//   As in K1, warpgroup 1 runs pass 2 half a tile behind warpgroup 0 (its
+//   O += P V of tile j-1 is issued where warpgroup 0 issues S of tile j),
+//   so one's exponentials meet the other's products; O += P V stays in
+//   flight across the barrier and is waited for with the next S.
+//   Registers and residency (ptxas): 120 a thread, bounded to 128, no
+//   spill; two blocks (four warpgroups) share an SM at
+//   82,944 bytes of shared memory each (Q 16 KB, the ring 64 KB, 1 KB of
+//   alignment). A warpgroup whose 64 rows lie wholly past S (the second
+//   half of the last q tile) joins the loads and barriers and skips the
+//   arithmetic.
+//   Tried and not kept: expf on s = (q k^T) scale, then s - m, the plain
+//   version's own arithmetic; its bit-equal share came out no higher than
+//   ex2's and its time a quarter longer at the harness shape (PERF.md).
+//   The first design (four warps of mma.sync, 64 rows a block, synchronous
+//   tile loads, one barrier pair a tile) took 2.6 times as long.
+// The dots body keeps its first design: four warps of mma.sync m16n8k16 a
+// 64-row q tile, K and V loaded synchronously into padded shared tiles,
+// its times in PERF.md.
+//   float32 (both bodies): 256 threads, each a 4 x 4 block of S and of O,
+//   float32 FMAs on operands stored k-major in shared memory (no tensor
+//   cores: TF32 would round the inputs); P goes through shared memory as
+//   the A operand of O += P V.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_tile.cuh"
+
 namespace {
 
 constexpr int D = 64;      // head dim (the JAX file's D)
-constexpr int TILE = 64;   // query rows per block, keys per shared-memory tile
-constexpr int SOFTMAX = 0, DOTS = 1;
+constexpr int TILE = 64;   // query rows per block, keys per shared-memory tile (dots, float32)
+constexpr int SOFTMAX = 0, DOTS = 1;  // C body codes
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------------- bf16 softmax, wgmma
+
+constexpr int W_BM = 128;     // query rows per block: two warpgroups x 64
+constexpr int W_BK = 64;      // keys per ring stage
+constexpr int W_STAGES = 4;   // stages of the ring
+constexpr int W_AHEAD = 2;    // tiles loading ahead of the one at work; two more are being read
+constexpr int W_THREADS = 256;
+using Tl = sm90::Tile<D>;
+constexpr int W_SMEM = 1024 + (W_BM + 2 * W_STAGES * W_BK) * Tl::ROW_BYTES;  // 1024: alignment
+
+__global__ void __launch_bounds__(W_THREADS, 2)
+softmax_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+                  int q_tiles, float scale_log2) {
+  using namespace sm90;
+  constexpr int KV_BYTES = W_BK * Tl::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + W_BM * Tl::ROW_BYTES;  // stage i: K at + 2 i KV_BYTES, then V
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * W_BM;
+  const int r_lo = q0 + wg * 64 + warp * 16 + g;
+  const bool active = q0 + wg * 64 < S;  // warpgroup-uniform
+  const long long base = (long long)bh * S * D;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+  const int n = (S + W_BK - 1) / W_BK;  // key tiles; the ring runs over 2n virtual tiles
+
+  auto stage_of = [&](int i) { return kv_s + (i % W_STAGES) * 2 * KV_BYTES; };
+  auto load = [&](int i) {  // one commit group per call, empty past the last tile
+    if (i < 2 * n) {
+      const int tile = i < n ? i : i - n;
+      load_tile_async<D, W_BK, W_THREADS>(stage_of(i), kb, D, tile * W_BK, S);
+      if (i >= n) load_tile_async<D, W_BK, W_THREADS>(stage_of(i) + KV_BYTES, vb, D, tile * W_BK, S);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<D, W_BM, W_THREADS>(q_s, q + base, D, q0, S);
+#pragma unroll
+  for (int i = 0; i < W_AHEAD; ++i) load(i);  // Q rides in the first group
+
+  const uint64_t q_desc = Tl::desc(q_s + wg * 64 * Tl::ROW_BYTES);
+  float sacc[32];  // S of the tile at work (rows = queries, columns = keys)
+  auto scores = [&](int i) {  // S = Q K^T of virtual tile i, keys at or past S at -inf
+    fence_regs(sacc);
+    wgmma_fence();
+    product_kmajor<D>(sacc, q_desc, Tl::desc(stage_of(i)));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    const int key0 = (i < n ? i : i - n) * W_BK;
+    if (key0 + W_BK > S) {  // the ragged tail
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (key0 + jb * 8 + 2 * t + e >= S) sacc[4 * jb + e] = sacc[4 * jb + 2 + e] = -INFINITY;
+    }
+  };
+
+  // pass 1: the row maxima of the raw products (scale > 0 keeps the order)
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<W_AHEAD - 1>();  // this thread's part of tile i has landed
+    fence_proxy_async();
+    __syncthreads();  // tile i is whole; tile i-2 is no longer read
+    load(i + W_AHEAD);  // into the stage tile i-2 held
+    if (!active) continue;
+    scores(i);
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      m_lo = fmaxf(m_lo, fmaxf(sacc[4 * jb], sacc[4 * jb + 1]));
+      m_hi = fmaxf(m_hi, fmaxf(sacc[4 * jb + 2], sacc[4 * jb + 3]));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {  // the four threads of a row
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
+  }
+  // finite for an active row: every tile has a key below S
+  const float mx_lo = m_lo * scale_log2, mx_hi = m_hi * scale_log2;
+
+  // pass 2, K1's two phases: A(j), S and e against the final maximum; B(j),
+  // O += P V, issued and left in flight. Warpgroup 0 runs A(j) B(j) between
+  // two block barriers, warpgroup 1 runs B(j-1) A(j).
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float l_lo = 0.f, l_hi = 0.f;
+  uint32_t pa[4][4];  // P in bf16, as A fragments of P V
+  auto phase_a = [&](int j) {
+    scores(n + j);
+    fence_regs(oacc);
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // exactly 0 on masked keys
+        const float mx = e < 2 ? mx_lo : mx_hi;
+        p[e] = ex2(fmaf(sacc[4 * jb + e], scale_log2, -mx));
+      }
+      l_lo += p[0] + p[1];
+      l_hi += p[2] + p[3];
+      pa[jb / 2][(jb % 2) * 2] = pack_bf16(p[0], p[1]);
+      pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+  };
+  auto phase_b = [&](int j) {
+    fence_regs(oacc);
+    wgmma_fence();
+    accumulate_mnmajor<D>(oacc, pa, Tl::desc(stage_of(n + j) + KV_BYTES));
+    wgmma_commit();
+  };
+  for (int j = 0; j <= n; ++j) {  // the last round is warpgroup 1's B(n - 1)
+    cp_async_wait<W_AHEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    load(n + j + W_AHEAD);
+    if (!active) continue;
+    if (wg == 0) {
+      if (j < n) {
+        phase_a(j);
+        phase_b(j);
+      }
+    } else {
+      if (j > 0) phase_b(j - 1);
+      if (j < n) phase_a(j);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(oacc);
+  cp_async_wait<0>();
+  if (!active) return;
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  __nv_bfloat16* ob = o + base;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (r_lo < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_lo * D + c) =
+          __floats2bfloat162_rn(oacc[4 * nt] / l_lo, oacc[4 * nt + 1] / l_lo);
+    if (r_lo + 8 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(r_lo + 8) * D + c) =
+          __floats2bfloat162_rn(oacc[4 * nt + 2] / l_hi, oacc[4 * nt + 3] / l_hi);
+  }
+}
+
+// ------------------------------------------------------ bf16 dots, mma.sync
 // These helpers (and the float32 tile loads, products and row reductions
-// below) repeat in attention_variants_bwd.cu on purpose: a shared
-// csrc/*.cuh enters the build hash of every kernel (ops/_build.py::_target),
-// so it would rebuild K1-K3.
+// below) repeat in attention_variants_bwd.cu, which keeps them for its
+// float32 bodies: a new or changed csrc/*.cuh enters the build hash of
+// every kernel (ops/_build.py::_target) and would rebuild K1-K3.
 
 constexpr int M_THREADS = 128;  // four warps, 16 query rows each
 constexpr int LDH = D + 8;      // bf16 row stride of a shared tile (144 bytes)
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t pair(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
   return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
@@ -135,11 +315,11 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[8][4], const uint32_t (
     }
 }
 
-template <int BODY>
+// out = (s cast to bf16) v, one pass over the K and V tiles
 __global__ void __launch_bounds__(M_THREADS)
-fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-         float scale) {
+dots_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+              float scale) {
   __shared__ __align__(16) __nv_bfloat16 Ks[TILE * LDH];
   __shared__ __align__(16) __nv_bfloat16 Vs[TILE * LDH];
   const long long base = (long long)blockIdx.y * S * D;
@@ -149,34 +329,10 @@ fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
 
   uint32_t qa[4][4];
   load_a_frags(qa, q + base, r_lo, S, t);
-  float s[8][4];
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-  if constexpr (BODY == SOFTMAX) {  // pass 1: the row maxima
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      __syncthreads();
-      load_tile_bf16(Ks, k + base, kt * TILE, S);
-      __syncthreads();
-      product_rows(s, qa, Ks, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (kt * TILE + 8 * j + 2 * t + e < S) {
-            m_lo = fmaxf(m_lo, s[j][e] * scale);
-            m_hi = fmaxf(m_hi, s[j][2 + e] * scale);
-          }
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {  // the four threads of a row
-      m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
-      m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
-    }
-  }
-  float oacc[8][4];
+  float s[8][4], oacc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
-  float r_lo_sum = 0.f, r_hi_sum = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {  // pass 2: e, r and e v
+  for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();
     load_tile_bf16(Ks, k + base, kt * TILE, S);
     load_tile_bf16(Vs, v + base, kt * TILE, S);
@@ -187,33 +343,13 @@ fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
     for (int j = 0; j < 8; ++j) {
       float p[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = kt * TILE + 8 * j + 2 * t + (e & 1) < S;
-        const float x = s[j][e] * scale;
-        if constexpr (BODY == SOFTMAX)
-          p[e] = in ? expf(x - (e < 2 ? m_lo : m_hi)) : 0.f;
-        else
-          p[e] = in ? x : 0.f;
-      }
-      if constexpr (BODY == SOFTMAX) {
-        r_lo_sum += p[0] + p[1];
-        r_hi_sum += p[2] + p[3];
-      }
+      for (int e = 0; e < 4; ++e)
+        p[e] = kt * TILE + 8 * j + 2 * t + (e & 1) < S ? s[j][e] * scale : 0.f;
       // the S accumulator of n-tile j is half of the A fragment of k-step j / 2
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      pa[j / 2][(j % 2) * 2] = sm90::pack_bf16(p[0], p[1]);
+      pa[j / 2][(j % 2) * 2 + 1] = sm90::pack_bf16(p[2], p[3]);
     }
     accumulate_pv(oacc, pa, Vs, g, t);
-  }
-  float f_lo = 1.f, f_hi = 1.f;
-  if constexpr (BODY == SOFTMAX) {
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      r_lo_sum += __shfl_xor_sync(0xffffffffu, r_lo_sum, off);
-      r_hi_sum += __shfl_xor_sync(0xffffffffu, r_hi_sum, off);
-    }
-    f_lo = r_lo_sum;
-    f_hi = r_hi_sum;
   }
   __nv_bfloat16* ob = o + base;
 #pragma unroll
@@ -221,10 +357,10 @@ fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
     const int c = 8 * j + 2 * t;
     if (r_lo < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_lo * D + c) =
-          __floats2bfloat162_rn(oacc[j][0] / f_lo, oacc[j][1] / f_lo);
+          __floats2bfloat162_rn(oacc[j][0], oacc[j][1]);
     if (r_lo + 8 < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(r_lo + 8) * D + c) =
-          __floats2bfloat162_rn(oacc[j][2] / f_hi, oacc[j][3] / f_hi);
+          __floats2bfloat162_rn(oacc[j][2], oacc[j][3]);
   }
 }
 
@@ -357,22 +493,30 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* _
 }
 
 template <int BODY>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int dtype, int BH,
-                   int S, float scale, cudaStream_t st) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                       float scale, cudaStream_t st) {
+  constexpr int SMEM = 4 * F_TILE_FLOATS * sizeof(float);
+  static cudaError_t attr =
+      cudaFuncSetAttribute(fwd_f32<BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((S + TILE - 1) / TILE, BH);
-  if (dtype == 1) {
-    fwd_bf16<BODY><<<grid, M_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, scale);
-  } else {
-    constexpr int SMEM = 4 * F_TILE_FLOATS * sizeof(float);
-    static cudaError_t attr = cudaFuncSetAttribute(
-        fwd_f32<BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (attr != cudaSuccess) return attr;
-    fwd_f32<BODY><<<grid, F_THREADS, SMEM, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), S, scale);
-  }
+  fwd_f32<BODY><<<grid, F_THREADS, SMEM, st>>>(static_cast<const float*>(q),
+                                               static_cast<const float*>(k),
+                                               static_cast<const float*>(v),
+                                               static_cast<float*>(o), S, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_softmax_bf16(const void* q, const void* k, const void* v, void* o, int BH,
+                                int S, float scale, cudaStream_t st) {
+  static cudaError_t attr = cudaFuncSetAttribute(
+      softmax_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int q_tiles = (S + W_BM - 1) / W_BM;
+  softmax_fwd_wgmma<<<(unsigned)q_tiles * BH, W_THREADS, W_SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, q_tiles,
+      scale * sm90::LOG2E);
   return cudaGetLastError();
 }
 
@@ -381,16 +525,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int dty
 extern "C" {
 
 // q, k, v, o: contiguous (B, H, S, 64) tensors, 16-byte aligned; dtype 0 =
-// float32, 1 = bfloat16; body 0 = SOFTMAX, 1 = DOTS. Launches one kernel on
-// `stream` and returns its launch error (cudaGetLastError()), or 0.
+// float32, 1 = bfloat16; body 0 = SOFTMAX, 1 = DOTS. Launches one kernel
+// on `stream` and returns its launch error (cudaGetLastError()), or 0.
 int variant_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int body, int B,
                 int H, int S, float scale, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || (long long)B * H > 65535) return cudaErrorInvalidValue;
-  if (!(dtype == 0 || dtype == 1) || !(body == SOFTMAX || body == DOTS))
-    return cudaErrorInvalidValue;
+  if (!(dtype == 0 || dtype == 1) || !(body == SOFTMAX || body == DOTS)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return body == SOFTMAX ? launch<SOFTMAX>(q, k, v, o, dtype, B * H, S, scale, st)
-                         : launch<DOTS>(q, k, v, o, dtype, B * H, S, scale, st);
+  const int BH = B * H;
+  if (dtype == 0)
+    return body == SOFTMAX ? launch_f32<SOFTMAX>(q, k, v, o, BH, S, scale, st)
+                           : launch_f32<DOTS>(q, k, v, o, BH, S, scale, st);
+  if (body == SOFTMAX) return launch_softmax_bf16(q, k, v, o, BH, S, scale, st);
+  dots_fwd_bf16<<<dim3((S + TILE - 1) / TILE, BH), M_THREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, scale);
+  return cudaGetLastError();
 }
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -236,7 +236,7 @@ def variant_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     q, k, v, do = (_dense(t) for t in (q, k, v, do))
     b, h, s, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # per row m, r and rowsum(dp e) / r, the sequence padded to 64-row tiles
+    # per row m (bf16 v4: m log2(e)), r (bf16 v4: 1/r) and rowsum(dp e) / r, padded to 64 rows
     stats = torch.empty((b * h, 3, -(-s // 64) * 64), dtype=_F32, device=q.device)
     lib = _build.load("attention_variants_bwd")
     fn = lib.variant_bwd
