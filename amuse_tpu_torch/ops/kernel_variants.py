@@ -17,14 +17,17 @@ mha(q, k, v)``, a ``torch.autograd.Function`` over two wrappers:
     (``_bwd_kernel_v4``: dS and P/r rounded to bf16) or "v0"
     (``_bwd_kernel_v0``). A CUDA tensor launches
     ``csrc/attention_variants_bwd.cu``, which replaces V2 ``_call_bwd``
-    (:143) and V4 ``_call_bwd_v3`` (:393).
+    (:143) and V4 ``_call_bwd_v3`` (:393): bf16 inputs go to its wgmma
+    kernels (v1 and v0 multiply their float32 operands in three exact bf16
+    pieces), float32 inputs to its FMA kernels.
 
 A CPU tensor runs the plain versions ``variant_fwd_reference`` and
 ``variant_bwd_reference``, which follow each TPU body's rounding points;
 nothing on the card's path calls them. There is no fallback: a CUDA input
 the kernels do not take raises, and so does a head dim other than 64 (the
 JAX file's ``D``). ``variant_fwd.launches`` and ``variant_bwd.launches``
-count kernel launches.
+count kernel launches, ``variant_bwd.routes`` the backward's by the kernels
+they went to (``BWD_ROUTES``).
 
     python -m amuse_tpu_torch.ops.kernel_variants [--iters 20] [--device cuda]
 
@@ -52,6 +55,9 @@ CHAIN_CALLS = 12
 
 FWD_BODIES = {"softmax": 0, "dots": 1}
 BWD_BODIES = {"v1": 0, "v4": 1, "v0": 2}
+# the kernels a variant_bwd launch went to, as the C entry point reports it:
+# the float32 FMA kernels (float32 inputs) or the bf16 wgmma kernels
+BWD_ROUTES = ("fma", "wgmma")
 # variant name -> (forward body, backward body), as the JAX file builds them
 VARIANTS = {
     "v1_divfold": ("softmax", "v1"),    # make_variant(_fwd_kernel_v1, _bwd_kernel_v1)
@@ -91,6 +97,62 @@ def kernel_limit(dtype: torch.dtype, body: str, top: float) -> float:
     if dtype == _F32:
         return KERNEL_F32_REL * top
     return math.ldexp(1.0, math.frexp(top)[1] - 8)  # top = m 2^e, m in [0.5, 1)
+
+
+# Inputs on which a float32 operand multiplied in fewer than three bf16
+# pieces breaks kernel_limit at bf16: each case makes one gradient (two for
+# "small_scores") a small difference of large products, from rows in pairs
+# (2t, 2t + 1) whose terms nearly cancel, so a piece's rounding (2^-17 of the
+# operand for two pieces) is no longer small against the result. The pairs
+# differ by w e_0, w ~ CANCELLATION_DELTA N(0, 1), put where the first row's
+# column 0 is zero, so that both rows are exact in bf16:
+#   "keys": k_{2t+1} = -k_{2t}, v_{2t+1} = v_{2t} + w e_0: dq (v0);
+#   "queries": q_{2t+1} = q_{2t}, dO_{2t+1} = -dO_{2t} + w e_0: dk;
+#   "values": q_{2t+1} = q_{2t} + w e_0, dO_{2t+1} = -dO_{2t}: dv;
+#   "small_scores" (v1): q ~ CANCELLATION_SMALL_Q in opposite pairs, k in
+#   opposite pairs, v and dO in equal pairs: e of a pair differs by about
+#   2 |s|, which dq and dk keep.
+# The sizes leave the gradients' float32 rounding (summed in any order) well
+# inside the limit (tests/test_torch_port_gpu.py holds a float64 model of the
+# two splits to it); a case that made a gradient vanish would hold its
+# rounding alone to the limit and is not used (v0's dq in "small_scores").
+CANCELLATION_SHAPE = (2, 4, 128, 64)  # S even: rows pair up
+CANCELLATION_DELTA, CANCELLATION_SMALL_Q = 2.0 ** -11, 2.0 ** -13.5
+CANCELLATION_CASES = {"v1": ("small_scores", "queries", "values"),
+                      "v0": ("keys", "queries", "values")}
+# the gradients each case makes small differences
+CANCELLATION_TARGETS = {"keys": ("dq",), "queries": ("dk",), "values": ("dv",),
+                        "small_scores": ("dq", "dk")}
+
+
+def cancellation_inputs(case: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """q, k, v, dO (bf16, on the CPU, CANCELLATION_SHAPE) of a cancellation
+    case (a key of ``CANCELLATION_TARGETS``), from numpy's generator seeded
+    with 0."""
+    b, h, s, d = CANCELLATION_SHAPE
+    rng = np.random.default_rng(0)
+
+    def rows(scale: float, sign: float = 0.0, delta: float = 0.0) -> torch.Tensor:
+        x = rng.normal(size=(b, h, s, d)) * scale
+        if sign:
+            x[:, :, 1::2] = sign * x[:, :, 0::2]
+        if delta:
+            x[:, :, 0::2, 0] = 0.0
+            x[:, :, 1::2, 0] = rng.normal(size=(b, h, s // 2)) * delta
+        return torch.from_numpy(x).to(torch.bfloat16)
+
+    w = CANCELLATION_DELTA
+    if case == "keys":
+        return rows(0.5), rows(1.0, -1.0), rows(1.0, 1.0, w), rows(1.0)
+    if case == "queries":
+        return rows(0.5, 1.0), rows(1.0), rows(1.0), rows(1.0, -1.0, w)
+    if case == "values":
+        return rows(0.5, 1.0, w), rows(1.0), rows(1.0), rows(1.0, -1.0)
+    if case == "small_scores":
+        return (rows(CANCELLATION_SMALL_Q, -1.0), rows(1.0, -1.0), rows(1.0, 1.0),
+                rows(1.0, 1.0))
+    raise ValueError(f"cancellation case {case!r} is not one of {sorted(CANCELLATION_TARGETS)}")
 
 
 def bit_equal_share(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -241,16 +303,20 @@ def variant_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     lib = _build.load("attention_variants_bwd")
     fn = lib.variant_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    route = ctypes.c_int(-1)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), stats.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
-            BWD_BODIES[body], b, h, s, SCALE, _stream(q))
+            BWD_BODIES[body], b, h, s, SCALE, _stream(q), ctypes.byref(route))
     _build.check(lib, "variant_bwd", rc)
     variant_bwd.launches += 1
+    variant_bwd.routes[BWD_ROUTES[route.value]] += 1
     return dq, dk, dv
 
 
 variant_bwd.launches = 0
+variant_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class _Variant(torch.autograd.Function):

@@ -607,7 +607,8 @@ PORT_KERNEL_RECORDS = {
     "attention_fwd": (("attn_fwd",), 1), "attention_bwd": (("attn_bwd",), 3),
     "ddim_sampler": (("ddim_sampler_kernel",), 1),
     "variant_fwd": (("softmax_fwd_wgmma", "dots_fwd_bf16", "fwd_f32<"), 1),
-    "variant_bwd": (("v4_rows_wgmma", "v4_cols_wgmma", "rows_f32<", "cols_f32<"), 2)}
+    "variant_bwd": (tuple(f"{b}_{p}_wgmma" for b in ("v4", "v1", "v0") for p in ("rows", "cols"))
+                    + ("rows_f32<", "cols_f32<"), 2)}
 # The profiler comes back short now and then: K2's first passes with 4 of 5
 # records, a session of one cuBLAS GEMM with none after MFCC + DTW, the
 # first session of each variant kernel and library call with none or some
@@ -3861,7 +3862,8 @@ VARIANT_MAIN_ITERS = 10  # timed chain calls a leg in the entry point's run
 # time it takes on three times the work.
 VARIANT_WINDOWS = {"windows": 5, "iters": 20, "warmup": 10}
 # S x S x 64 products a kernel executes against those its function counts
-VARIANT_PRODUCTS = {"softmax": (2, 3), "v4": (5, 9)}
+# (v1, v0: a float32 operand's product is three bf16 products, one a piece)
+VARIANT_PRODUCTS = {"softmax": (2, 3), "v4": (5, 9), "v1": (5, 15), "v0": (5, 12)}
 
 
 def cuda_ms_windows(fn, windows: int, iters: int, warmup: int) -> dict:
@@ -3907,9 +3909,12 @@ def phase_kernel_variants(ptxas: dict) -> list:
     beside it, on the same inputs). At the harness shape each kernel is
     timed (VARIANT_WINDOWS) beside its plain version and SDPA's forward or
     backward in bf16 and float32; the redesigned kernels also as device
-    time, the v4 backward's kernels apart (``passes_ms``); their executed
-    and counted TFLOP/s and ptxas's registers and spills (``ptxas``, from
-    ``phase_build``). Then
+    time, the v4, v1 and v0 backwards' two kernels apart (``passes_ms``);
+    their executed and counted TFLOP/s and ptxas's registers and spills
+    (``ptxas``, from ``phase_build``). The v1 and v0 backwards also on
+    ``kernel_variants.CANCELLATION_CASES`` at bf16 (their gradients small
+    differences of large products), under the same limit, reruns
+    bit-equal. Then
     the entry point ``kernel_variants.main`` (parity lines, the 12-call chain
     of the K1+K2 baseline and of each variant timed, one JSON line a leg),
     its launches counted against what its legs make; and one chain of each
@@ -4005,11 +4010,11 @@ def phase_kernel_variants(ptxas: dict) -> list:
                 case.update(windows(run),
                             plain_ms=cuda_ms(lambda: kv.variant_bwd_reference(q, k, v, do, body),
                                              iters=3, warmup=1))
-                if body in VARIANT_PRODUCTS:
-                    passes = _kernel_times(run, "v4_")
+                if body in VARIANT_PRODUCTS:  # each body's rows and columns kernels
+                    passes = _kernel_times(run, f"{body}_")
                     case.update(rates(body, case["ms"]), passes_ms=passes,
                                 device_ms=sum(passes.values()),
-                                ptxas={n: x for n, x in ptxas.items() if "v4_" in n})
+                                ptxas={n: x for n, x in ptxas.items() if f"{body}_" in n})
                 at_shape[body] = case
             cases.append(case)
             del got, again, refs
@@ -4029,6 +4034,19 @@ def phase_kernel_variants(ptxas: dict) -> list:
                     "backward_window_ms": bwd["ms"], "backward_spread_ms": bwd["spread_ms"]}
                 del lq, lk, lv, lib_out, ldo
         del q, k, v, do
+    for body, names in kv.CANCELLATION_CASES.items():  # the bf16 splits' cases
+        for name in names:
+            q, k, v, do = (t.cuda() for t in kv.cancellation_inputs(name))
+            run = functools.partial(kv.variant_bwd, q, k, v, do, body)
+            got, again = run(), run()
+            refs = kv.variant_bwd_reference(q, k, v, do, body)
+            torch.cuda.synchronize()
+            at = f"variant backward {body} on the cancellation case {name!r}"
+            cases.append({"kernel": "backward", "body": body, "cancellation": name,
+                          "shape": list(q.shape), "dtype": "bfloat16",
+                          "targets": kv.CANCELLATION_TARGETS[name],
+                          **check_grads(at, got, refs, again, body)})
+            del q, k, v, do, got, again, refs
     torch.cuda.empty_cache()
 
     # the entry point, as a user runs it, every counter at 0 before it
@@ -4072,14 +4090,15 @@ def phase_kernel_variants(ptxas: dict) -> list:
           "launches_per_chain": per_chain})
 
     # Bounds at the harness shape (bf16 inputs). Each S x S x 64 product is
-    # charged at the peak for its operands: bf16 x bf16 (q k^T, dO v^T, the
-    # bf16-rounded e, ds16 and e / r against a bf16 tensor) on the tensor
-    # cores, a float32 operand (don, e, ds, s of the float32 bodies) on the
-    # float32 units. body -> (bf16 products, float32 products, bf16 bytes moved)
+    # charged at the bf16 tensor-core peak: bf16 x bf16 (q k^T, dO v^T, the
+    # bf16-rounded e, ds16 and e / r against a bf16 tensor) once, a float32
+    # operand against an exact bf16 one (v1's ds and e / r, with dp = dO v^T
+    # / r; v0's ds and s) three times, its three bf16 pieces. body -> (bf16
+    # products, float32 products, bf16 bytes moved)
     b, h, s, d = kv.B, kv.H, kv.S, kv.D
     product, tensor = 2.0 * b * h * s * s * d, b * h * s * d * 2.0
     work = {"softmax": (2, 0, 4 * tensor), "dots": (2, 0, 4 * tensor),
-            "v1": (1, 4, 7 * tensor), "v4": (5, 0, 7 * tensor), "v0": (2, 3, 7 * tensor)}
+            "v1": (11, 0, 7 * tensor), "v4": (5, 0, 7 * tensor), "v0": (11, 0, 7 * tensor)}
 
     def bound(body):
         n_bf16, n_f32, nbytes = work[body]
@@ -4088,6 +4107,9 @@ def phase_kernel_variants(ptxas: dict) -> list:
                 "bound_by": "operations" if ops_s > nbytes / PEAK_BYTES else "bytes"}
 
     def timing(body, lib):
+        """The body's row; ``lib`` names SDPA's time where SDPA computes the
+        body's function (softmax attention), None where no PyTorch call does
+        (the dots forward, the v0 backward)."""
         c = at_shape[body]
         extra = {k: c[k] for k in ("tolerance", "err_over_tolerance", "grads", "bit_equal_share",
                                    "ms_spread", "device_ms", "passes_ms", "products_counted",
@@ -4095,10 +4117,12 @@ def phase_kernel_variants(ptxas: dict) -> list:
                                    "ptxas") if k in c}
         row = {"body": body, "shape": c["shape"], "dtype": c["dtype"],
                "max_abs_err": c["max_abs_err"], **extra, "ms": c["ms"],
-               "plain_ms": c["plain_ms"], "library_ms": library["bfloat16"][lib],
-               "library_window_ms": library["bfloat16"][lib.replace("_ms", "_window_ms")],
-               "library_spread_ms": library["bfloat16"][lib.replace("_ms", "_spread_ms")],
-               "library_f32_ms": library["float32"][lib]}
+               "plain_ms": c["plain_ms"], "library_ms": None}
+        if lib is not None:
+            row.update(library_ms=library["bfloat16"][lib],
+                       library_window_ms=library["bfloat16"][lib.replace("_ms", "_window_ms")],
+                       library_spread_ms=library["bfloat16"][lib.replace("_ms", "_spread_ms")],
+                       library_f32_ms=library["float32"][lib])
         return {**row, **bound(body)}
 
     def launches(kind, names):
@@ -4114,14 +4138,14 @@ def phase_kernel_variants(ptxas: dict) -> list:
          "replaces": "benchmarks/kernel_variants.py:120",
          "launches": launches("variant_fwd", ("v1_divfold", "v0_dotsonly", "v4_bf16dots")),
          "launches_per": "one 12-call chain each of v1_divfold, v0_dotsonly, v4_bf16dots",
-         **softmax, "dots": timing("dots", "forward_ms")},
+         **softmax, "dots": timing("dots", None)},
         {"name": "attention_variants_bwd (V2 _call_bwd)", **bwd_src,
          "replaces": "benchmarks/kernel_variants.py:143",
          "launches": launches("variant_bwd", ("v1_divfold", "v0_dotsonly", "v4_bf16dots",
                                               "v5_fullq_fwd")),
          "launches_per": "one 12-call chain each of v1_divfold, v0_dotsonly, v4_bf16dots, "
                          "v5_fullq_fwd",
-         **v1_bwd, "v4": timing("v4", "backward_ms"), "v0": timing("v0", "backward_ms")},
+         **v1_bwd, "v4": timing("v4", "backward_ms"), "v0": timing("v0", None)},
         {"name": "attention_variants_fwd (V3 _call_fwd_v3)", **fwd_src,
          "replaces": "benchmarks/kernel_variants.py:373",
          "launches": launches("variant_fwd", ("v3_headloop",)),

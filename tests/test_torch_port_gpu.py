@@ -1420,3 +1420,102 @@ def test_variant_kernels_refuse_what_they_do_not_take(cuda):
         kv.variant_bwd(q.half(), q.half(), q.half(), q.half(), "v4")
     with pytest.raises(ValueError, match="one device"):
         kv.variant_fwd(q, q.cpu(), q, "softmax")
+
+
+def _split_model(q, k, v, do, body, pieces):
+    """(dq, dk, dv) of the v1 or v0 body in float64, its float32 operands
+    (ds, and e / r or s) held as the bf16 kernels hold them: rounded to
+    float32, then the first ``pieces`` of their exact three-piece bf16 split;
+    every product exact."""
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    f64 = torch.float64
+    q, k, v, do = (t.to(f64) for t in (q, k, v, do))
+    s = q @ k.transpose(-1, -2) * kv.SCALE
+    if body == "v0":
+        ds, p = do @ v.transpose(-1, -2) * kv.SCALE, s
+    else:
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        r = e.sum(-1, keepdim=True)
+        dp = do @ v.transpose(-1, -2)
+        ds = e * (dp - (dp * e).sum(-1, keepdim=True) / r) / r * kv.SCALE
+        p = e / r
+
+    def split(x):
+        rest, kept = x.to(torch.float32), torch.zeros_like(x)
+        for _ in range(pieces):
+            piece = rest.to(torch.bfloat16).to(torch.float32)
+            kept, rest = kept + piece.to(f64), rest - piece
+        return kept
+
+    ds, p = split(ds), split(p)
+    return ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
+
+
+@pytest.mark.parametrize("body", ["v1", "v0"])
+def test_cancellation_cases_need_three_pieces(body):
+    """On the CPU: each cancellation case of kernel_variants breaks
+    kernel_limit at bf16 in the gradients it targets where the float32
+    operands are multiplied in two bf16 pieces, and keeps every gradient
+    within half the limit in three (the kernels' split), both against the
+    plain version in float32: the case tells the two apart."""
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    for case in kv.CANCELLATION_CASES[body]:
+        q, k, v, do = kv.cancellation_inputs(case)
+        refs = kv.variant_bwd_reference(*(t.float() for t in (q, k, v, do)), body)
+        two, three = (_split_model(q, k, v, do, body, n) for n in (2, 3))
+        for name, ref, a2, a3 in zip(("dq", "dk", "dv"), refs, two, three):
+            limit = kv.kernel_limit(torch.bfloat16, body, ref.abs().max().item())
+            err2, err3 = ((a.float() - ref).abs().max().item() / limit for a in (a2, a3))
+            assert err3 <= 0.5, (case, name, err3)
+            if name in kv.CANCELLATION_TARGETS[case]:
+                assert err2 > 1.5, (case, name, err2)
+
+
+@pytest.mark.parametrize("body", ["v1", "v0"])
+def test_variant_bwd_kernel_passes_the_cancellation_cases(cuda, body):
+    """The bf16 v1 and v0 backward kernels on the cancellation cases, against
+    the plain version under the unchanged limit, a rerun bit-equal."""
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    for case in kv.CANCELLATION_CASES[body]:
+        q, k, v, do = (t.to(cuda) for t in kv.cancellation_inputs(case))
+        got, again = kv.variant_bwd(q, k, v, do, body), kv.variant_bwd(q, k, v, do, body)
+        torch.cuda.synchronize()
+        for name, g, ref, rerun in zip(("dq", "dk", "dv"), got,
+                                       kv.variant_bwd_reference(q, k, v, do, body), again):
+            ref = ref.float()
+            err = (g.float() - ref).abs().max().item()
+            assert err <= kv.kernel_limit(torch.bfloat16, body, ref.abs().max().item()), \
+                (case, name, err)
+            assert torch.equal(g, rerun), (case, name)
+
+
+@pytest.mark.parametrize("body", ["v1", "v4", "v0"])
+def test_variant_bwd_bf16_runs_on_the_wgmma_kernels(cuda, body):
+    """A bf16 call launches the body's wgmma kernels and a float32 call the
+    FMA kernels: the route the C entry point reports and the kernels the
+    profiler records (up to three tries: a trace can miss a launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    for dtype, route, names in ((torch.bfloat16, "wgmma",
+                                 {f"{body}_rows_wgmma", f"{body}_cols_wgmma"}),
+                                (torch.float32, "fma", {"rows_f32", "cols_f32"})):
+        q, k, v, do = _variant_inputs(cuda, dtype, (1, 2, 200, 64), 5)
+        before = dict(kv.variant_bwd.routes)
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                kv.variant_bwd(q, k, v, do, body)
+                torch.cuda.synchronize()
+            seen = {e.key for e in prof.key_averages()}
+            if all(any(n in key for key in seen) for n in names):
+                break
+        assert all(any(n in key for key in seen) for n in names), (dtype, sorted(seen))
+        other = {"wgmma": "_f32", "fma": "_wgmma"}[route]
+        assert not any(other in key for key in seen), (dtype, sorted(seen))
+        calls = kv.variant_bwd.routes[route] - before[route]
+        assert 1 <= calls <= 3 and sum(kv.variant_bwd.routes.values()) - sum(before.values()) \
+            == calls, (dtype, kv.variant_bwd.routes, before)

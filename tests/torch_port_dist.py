@@ -274,16 +274,20 @@ def stage1_steps(mesh, device, stochastic: bool = False, quads: int = 2, steps: 
 
 
 def private_bytes() -> int:
-    """This process's private memory, ``Private_Clean + Private_Dirty`` of
+    """This process's private memory: the ``Anonymous`` pages of
     ``/proc/self/smaps_rollup``, or summed over ``/proc/self/smaps`` where the
-    kernel has no ``smaps_rollup`` (gVisor, whose ``smaps`` counts a mapped
-    file's pages as each mapping process's own): what it holds that no other
-    process maps."""
-    keys = ("Private_Clean", "Private_Dirty")
+    kernel has no ``smaps_rollup`` (gVisor). That is what it holds that no
+    other process can share: its heap, its copies, and copy-on-write pages of
+    a private mapping. A mapped file's pages are the page cache's, one copy a
+    host, and are left out: ``Private_Clean`` would count them for whichever
+    rank faulted them first until the other rank faults them too, so two
+    ranks reading the same batch would see their growth depend on which
+    measured first (up to 11 MB of a 64 MiB bank for one batch where the
+    kernel maps the page cache's large folios whole)."""
     proc = Path("/proc/self")
     path = proc / "smaps_rollup" if (proc / "smaps_rollup").exists() else proc / "smaps"
     return 1024 * sum(int(line.split()[1]) for line in path.read_text().splitlines()
-                      if line.split(":")[0] in keys)
+                      if line.split(":")[0] == "Anonymous")
 
 
 def stage1_bank(mesh, device, npz: str, unpack_dir: str, batch_size: int = 2) -> dict:
