@@ -19,10 +19,11 @@
 // them to float32's minimum, whose exp is 0).
 //
 // Bound on the H100: operations. 4 S^2 D per (batch, head) for the two
-// products. The softmax executes three (its first pass recomputes q k^T:
-// 6 S^2 D). At the harness shape (4, 12, 1214, 64) bf16: 18.1 GFLOP
-// counted, 27.2 executed, 0.0183 ms at 989 TFLOP/s; the bytes (q, k, v
-// read, out written: 29.8 MB) take 0.0089 ms at 3.35 TB/s.
+// products, which the dots executes as they are. The softmax executes
+// three (its first pass recomputes q k^T: 6 S^2 D). At the harness shape
+// (4, 12, 1214, 64) bf16: 18.1 GFLOP counted (27.2 executed by the
+// softmax), 0.0183 ms at 989 TFLOP/s; the bytes (q, k, v read, out
+// written: 29.8 MB) take 0.0089 ms at 3.35 TB/s.
 //
 // Design of the bf16 softmax (softmax_fwd_wgmma): K1's building blocks
 // (attention_fwd.cu, sm90_tile.cuh). One block of two warpgroups (256
@@ -59,9 +60,28 @@
 //   ex2's and its time a quarter longer at the harness shape (PERF.md).
 //   The first design (four warps of mma.sync, 64 rows a block, synchronous
 //   tile loads, one barrier pair a tile) took 2.6 times as long.
-// The dots body keeps its first design: four warps of mma.sync m16n8k16 a
-// 64-row q tile, K and V loaded synchronously into padded shared tiles,
-// its times in PERF.md.
+// Design of the bf16 dots (dots_fwd_wgmma): the same blocks, grid and ring
+// (4 stages of 64 keys, two tiles loading ahead, one barrier a tile) with
+// pass 1 gone: n tiles, V loaded with every K. S = Q K^T from shared
+// memory; P = bf16(s) in registers as the A operand of O += P V, V MN-major;
+// no mask (a zero-filled K row gives s = +0 and P = 0 against a zero-filled
+// V row, the zero padding the JAX wrapper gives the TPU body). scale = 1/8
+// is a power of two, so the scale is applied to the float32 O at the store
+// and the C entry refuses any other scale. That is bit for bit the plain
+// version's rounding (tests/test_torch_port_variants.py) wherever no value
+// leaves float32's normal range: s scale and every product and partial sum
+// of the plain O are zero or at least 2^-126 in magnitude; |s| stays below bf16's
+// overflow edge, 2^128 (1 - 2^-9) ~ 3.39e38, past which bf16(s) is inf and
+// bf16(s scale) is not; every partial sum of bf16(s) v stays below FLT_MAX.
+// Each warpgroup waits for S of a tile, which also retires the previous
+// tile's P V, forms P and leaves its P V in flight over the next barrier;
+// the two blocks an SM (four warpgroups) fill each other's gaps. Registers
+// (ptxas): 106, no spill.
+//   Tried (PERF.md), each slower: S of tile j+1 committed before P V of
+//   tile j, so that waiting for S leaves P V in flight while the next P is
+//   formed into a second P buffer (122-126 registers, 13-21% slower);
+//   128-key stages, one barrier for two tiles and every product retired
+//   before it; three or five stages.
 //   float32 (both bodies): 256 threads, each a 4 x 4 block of S and of O,
 //   float32 FMAs on operands stored k-major in shared memory (no tensor
 //   cores: TF32 would round the inputs); P goes through shared memory as
@@ -77,7 +97,7 @@
 namespace {
 
 constexpr int D = 64;      // head dim (the JAX file's D)
-constexpr int TILE = 64;   // query rows per block, keys per shared-memory tile (dots, float32)
+constexpr int TILE = 64;   // query rows per block, keys per shared-memory tile (float32)
 constexpr int SOFTMAX = 0, DOTS = 1;  // C body codes
 
 // ------------------------------------------------------- bf16 softmax, wgmma
@@ -236,132 +256,75 @@ softmax_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
-// ------------------------------------------------------ bf16 dots, mma.sync
-// These helpers (and the float32 tile loads, products and row reductions
-// below) repeat in attention_variants_bwd.cu, which keeps them for its
-// float32 bodies: a new or changed csrc/*.cuh enters the build hash of
-// every kernel (ops/_build.py::_target) and would rebuild K1-K3.
+// ---------------------------------------------------------- bf16 dots, wgmma
 
-constexpr int M_THREADS = 128;  // four warps, 16 query rows each
-constexpr int LDH = D + 8;      // bf16 row stride of a shared tile (144 bytes)
+// out = bf16(bf16(s) v * scale), scale a power of two (the C entry checks),
+// so equal to bf16(bf16(s scale) v) bit for bit on the conditions the
+// header note gives
+__global__ void __launch_bounds__(W_THREADS, 2)
+dots_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
+               int q_tiles, float scale) {
+  using namespace sm90;
+  constexpr int KV_BYTES = W_BK * Tl::ROW_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + W_BM * Tl::ROW_BYTES;  // stage i: K at + 2 i KV_BYTES, then V
 
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * W_BM;
+  const int r_lo = q0 + wg * 64 + warp * 16 + lane / 4;
+  const bool active = q0 + wg * 64 < S;  // warpgroup-uniform
+  const long long base = (long long)bh * S * D;
+  const int n = (S + W_BK - 1) / W_BK;  // key tiles
 
-// d (16 x 8, f32) += a (16 x 16 bf16) b (16 x 8 bf16)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [row0, row0 + 64) of a (S, 64) bf16 matrix into a shared tile with row
-// stride LDH; rows at or past S are zeros
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int S) {
-  for (int c = threadIdx.x; c < TILE * D / 8; c += M_THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dst + r * LDH + col) = v;
-  }
-}
-
-// A fragments (16 rows x 64) of rows r_lo and r_lo + 8 of a (S, 64) matrix
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], const __nv_bfloat16* src,
-                                             int r_lo, int S, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = 16 * kk + 2 * t;
-    const __nv_bfloat16* lo = src + (long long)r_lo * D + c;
-    const __nv_bfloat16* hi = lo + 8 * D;
-    a[kk][0] = r_lo < S ? *reinterpret_cast<const uint32_t*>(lo) : 0u;
-    a[kk][1] = r_lo + 8 < S ? *reinterpret_cast<const uint32_t*>(hi) : 0u;
-    a[kk][2] = r_lo < S ? *reinterpret_cast<const uint32_t*>(lo + 8) : 0u;
-    a[kk][3] = r_lo + 8 < S ? *reinterpret_cast<const uint32_t*>(hi + 8) : 0u;
-  }
-}
-
-// s (16 x 64: eight n-tiles of 8 keys) = A (16 x 64, fragments) B^T, B the
-// 64-row shared tile with the head dim contiguous (the Q K^T form)
-__device__ __forceinline__ void product_rows(float (&s)[8][4], const uint32_t (&a)[4][4],
-                                             const __nv_bfloat16* tile, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat16* b = tile + (8 * j + g) * LDH + 16 * kk + 2 * t;
-      mma16816(s[j], a[kk], *reinterpret_cast<const uint32_t*>(b),
-               *reinterpret_cast<const uint32_t*>(b + 8));
+  auto stage_of = [&](int j) { return kv_s + (j % W_STAGES) * 2 * KV_BYTES; };
+  auto load = [&](int j) {  // one commit group per call, empty past the last tile
+    if (j < n) {
+      load_tile_async<D, W_BK, W_THREADS>(stage_of(j), k + base, D, j * W_BK, S);
+      load_tile_async<D, W_BK, W_THREADS>(stage_of(j) + KV_BYTES, v + base, D, j * W_BK, S);
     }
-}
+    cp_async_commit();
+  };
+  load_tile_async<D, W_BM, W_THREADS>(q_s, q + base, D, q0, S);
+#pragma unroll
+  for (int i = 0; i < W_AHEAD; ++i) load(i);  // Q rides in the first group
 
-// o (16 x 64) += P (16 x 64 keys, A fragments) V (the 64-key shared tile)
-__device__ __forceinline__ void accumulate_pv(float (&o)[8][4], const uint32_t (&p)[4][4],
-                                              const __nv_bfloat16* tile, int g, int t) {
+  // Keys at or past S need no mask: a zero-filled K row gives s = +0, so
+  // P = 0, against a zero-filled V row.
+  const uint64_t q_desc = Tl::desc(q_s + wg * 64 * Tl::ROW_BYTES);
+  float sacc[32], oacc[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  uint32_t pa[4][4];  // P = bf16(s) as A fragments of P V
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<W_AHEAD - 1>();  // this thread's part of tile j has landed
+    fence_proxy_async();
+    __syncthreads();  // tile j is whole; P V of tile j-2 has retired
+    load(j + W_AHEAD);  // into the stage tile j-2 held
+    if (!active) continue;
+    fence_regs(sacc);
+    wgmma_fence();
+    product_kmajor<D>(sacc, q_desc, Tl::desc(stage_of(j)));  // S = Q K^T
+    wgmma_commit();
+    wgmma_wait<0>();  // S(j), and P V(j - 1) before it
+    fence_regs(sacc);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat16* b = tile + (16 * kk + 2 * t) * LDH + 8 * j + g;
-      mma16816(o[j], p[kk], pair(b, b + LDH), pair(b + 8 * LDH, b + 9 * LDH));
+    for (int jb = 0; jb < 8; ++jb) {  // S of n-tile jb is half of P V's k-step jb / 2
+      pa[jb / 2][(jb % 2) * 2] = pack_bf16(sacc[4 * jb], sacc[4 * jb + 1]);
+      pa[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(sacc[4 * jb + 2], sacc[4 * jb + 3]);
     }
-}
-
-// out = (s cast to bf16) v, one pass over the K and V tiles
-__global__ void __launch_bounds__(M_THREADS)
-dots_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-              float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[TILE * LDH];
-  __shared__ __align__(16) __nv_bfloat16 Vs[TILE * LDH];
-  const long long base = (long long)blockIdx.y * S * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r_lo = blockIdx.x * TILE + 16 * warp + g;  // and r_lo + 8
-  const int n_tiles = (S + TILE - 1) / TILE;
-
-  uint32_t qa[4][4];
-  load_a_frags(qa, q + base, r_lo, S, t);
-  float s[8][4], oacc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();
-    load_tile_bf16(Ks, k + base, kt * TILE, S);
-    load_tile_bf16(Vs, v + base, kt * TILE, S);
-    __syncthreads();
-    product_rows(s, qa, Ks, g, t);
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[e] = kt * TILE + 8 * j + 2 * t + (e & 1) < S ? s[j][e] * scale : 0.f;
-      // the S accumulator of n-tile j is half of the A fragment of k-step j / 2
-      pa[j / 2][(j % 2) * 2] = sm90::pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = sm90::pack_bf16(p[2], p[3]);
-    }
-    accumulate_pv(oacc, pa, Vs, g, t);
+    fence_regs(oacc);
+    wgmma_fence();
+    accumulate_mnmajor<D>(oacc, pa, Tl::desc(stage_of(j) + KV_BYTES));  // O += P V, in flight
+    wgmma_commit();
   }
-  __nv_bfloat16* ob = o + base;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * t;
-    if (r_lo < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r_lo * D + c) =
-          __floats2bfloat162_rn(oacc[j][0], oacc[j][1]);
-    if (r_lo + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(r_lo + 8) * D + c) =
-          __floats2bfloat162_rn(oacc[j][2], oacc[j][3]);
-  }
+  wgmma_wait<0>();
+  fence_regs(oacc);
+  cp_async_wait<0>();
+  if (active) store_rows<D>(o + base, D, oacc, r_lo, S, t, scale, scale);
 }
 
 // ---------------------------------------------------------------- float32
@@ -520,13 +483,28 @@ cudaError_t launch_softmax_bf16(const void* q, const void* k, const void* v, voi
   return cudaGetLastError();
 }
 
+cudaError_t launch_dots_bf16(const void* q, const void* k, const void* v, void* o, int BH,
+                             int S, float scale, cudaStream_t st) {
+  int e;
+  if (frexpf(scale, &e) != 0.5f) return cudaErrorInvalidValue;  // the fold needs a power of two
+  static cudaError_t attr = cudaFuncSetAttribute(
+      dots_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int q_tiles = (S + W_BM - 1) / W_BM;
+  dots_fwd_wgmma<<<(unsigned)q_tiles * BH, W_THREADS, W_SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, q_tiles, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v, o: contiguous (B, H, S, 64) tensors, 16-byte aligned; dtype 0 =
-// float32, 1 = bfloat16; body 0 = SOFTMAX, 1 = DOTS. Launches one kernel
-// on `stream` and returns its launch error (cudaGetLastError()), or 0.
+// float32, 1 = bfloat16; body 0 = SOFTMAX, 1 = DOTS (bf16: `scale` a power
+// of two). Launches one kernel on `stream` and returns its launch error
+// (cudaGetLastError()), or 0.
 int variant_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int body, int B,
                 int H, int S, float scale, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || (long long)B * H > 65535) return cudaErrorInvalidValue;
@@ -536,11 +514,8 @@ int variant_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
   if (dtype == 0)
     return body == SOFTMAX ? launch_f32<SOFTMAX>(q, k, v, o, BH, S, scale, st)
                            : launch_f32<DOTS>(q, k, v, o, BH, S, scale, st);
-  if (body == SOFTMAX) return launch_softmax_bf16(q, k, v, o, BH, S, scale, st);
-  dots_fwd_bf16<<<dim3((S + TILE - 1) / TILE, BH), M_THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, scale);
-  return cudaGetLastError();
+  return body == SOFTMAX ? launch_softmax_bf16(q, k, v, o, BH, S, scale, st)
+                         : launch_dots_bf16(q, k, v, o, BH, S, scale, st);
 }
 
 const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -79,11 +79,11 @@ _F32 = torch.float32
 # binade is more than 2^-8 of the largest). The v4 backward at either input
 # type: 2e-2 of the largest entry and relative L2 8e-3 per gradient, as for
 # K2 (dS and P/r rounded to bf16 from float32 values that differ in the last
-# bits). A bf16 softmax forward must also equal its plain version bit for
-# bit on at least KERNEL_BIT_EQUAL_SHARE of its entries: e rounded against
-# the row's final maximum, as the TPU bodies do. A design that rounds e
-# elsewhere meets the error limit and falls short of the share (K1's online
-# softmax; PERF.md).
+# bits). A bf16 forward must also equal its plain version bit for bit on at
+# least KERNEL_BIT_EQUAL_SHARE of its entries: e rounded against the row's
+# final maximum (the dots: s rounded once), as the TPU bodies do. A design
+# that rounds e elsewhere meets the error limit and falls short of the
+# share (K1's online softmax; PERF.md).
 KERNEL_F32_REL = 1e-4
 KERNEL_V4_REL, KERNEL_V4_REL_L2 = 2e-2, 8e-3
 KERNEL_BIT_EQUAL_SHARE = 0.99

@@ -606,7 +606,7 @@ def _device_rows(prof) -> list:
 PORT_KERNEL_RECORDS = {
     "attention_fwd": (("attn_fwd",), 1), "attention_bwd": (("attn_bwd",), 3),
     "ddim_sampler": (("ddim_sampler_kernel",), 1),
-    "variant_fwd": (("softmax_fwd_wgmma", "dots_fwd_bf16", "fwd_f32<"), 1),
+    "variant_fwd": (("softmax_fwd_wgmma", "dots_fwd_wgmma", "fwd_f32<"), 1),
     "variant_bwd": (tuple(f"{b}_{p}_wgmma" for b in ("v4", "v1", "v0") for p in ("rows", "cols"))
                     + ("rows_f32<", "cols_f32<"), 2)}
 # The profiler comes back short now and then: K2's first passes with 4 of 5
@@ -3863,7 +3863,8 @@ VARIANT_MAIN_ITERS = 10  # timed chain calls a leg in the entry point's run
 VARIANT_WINDOWS = {"windows": 5, "iters": 20, "warmup": 10}
 # S x S x 64 products a kernel executes against those its function counts
 # (v1, v0: a float32 operand's product is three bf16 products, one a piece)
-VARIANT_PRODUCTS = {"softmax": (2, 3), "v4": (5, 9), "v1": (5, 15), "v0": (5, 12)}
+VARIANT_PRODUCTS = {"softmax": (2, 3), "dots": (2, 2), "v4": (5, 9), "v1": (5, 15),
+                    "v0": (5, 12)}
 
 
 def cuda_ms_windows(fn, windows: int, iters: int, warmup: int) -> dict:
@@ -3904,9 +3905,9 @@ def phase_kernel_variants(ptxas: dict) -> list:
     against its plain version at a small shape with a ragged S (2, 2, 333,
     64) in float32 and bf16 and at the harness's (4, 12, 1214, 64) bf16,
     under ``kernel_variants.kernel_limit``, each rerun bit-equal, a bf16
-    softmax forward bit-equal to its plain version on KERNEL_BIT_EQUAL_SHARE
-    of its entries (K1's error and share against the same plain version
-    beside it, on the same inputs). At the harness shape each kernel is
+    forward (softmax, dots) bit-equal to its plain version on
+    KERNEL_BIT_EQUAL_SHARE of its entries (K1's error and share against the
+    plain softmax beside it, on the same inputs). At the harness shape each kernel is
     timed (VARIANT_WINDOWS) beside its plain version and SDPA's forward or
     backward in bf16 and float32; the redesigned kernels also as device
     time, the v4, v1 and v0 backwards' two kernels apart (``passes_ms``);
@@ -3935,11 +3936,14 @@ def phase_kernel_variants(ptxas: dict) -> list:
 
     product = 2.0 * kv.B * kv.H * kv.S * kv.S * kv.D
 
-    def rates(name: str, ms: float) -> dict:
+    def rates(name: str, ms: float, dev_ms: float) -> dict:
+        """TFLOP/s on the windows' ms and (``device_*``) on the device ms."""
         counted, executed = VARIANT_PRODUCTS[name]
-        return {"products_counted": counted, "products_executed": executed,
+        return {"products_counted": counted, "products_executed": executed, "device_ms": dev_ms,
                 "tflops_counted": counted * product / ms / 1e9,
-                "tflops_executed": executed * product / ms / 1e9}
+                "tflops_executed": executed * product / ms / 1e9,
+                "device_tflops_counted": counted * product / dev_ms / 1e9,
+                "device_tflops_executed": executed * product / dev_ms / 1e9}
 
     def check_grads(at, got, refs, again, body) -> dict:
         grads = {}
@@ -3977,9 +3981,9 @@ def phase_kernel_variants(ptxas: dict) -> list:
             check(torch.equal(out, again), f"{at}: two launches differ")
             case = {"kernel": "forward", "body": body, "shape": list(shape), "dtype": name,
                     "max_abs_err": err, "tolerance": tol}
-            if dtype == torch.bfloat16:  # the softmax rounds e where the TPU bodies do
+            if dtype == torch.bfloat16:  # e or s rounded where the TPU bodies round it
                 case["bit_equal_share"] = share = kv.bit_equal_share(out, ref)
-                check(body != "softmax" or share >= kv.KERNEL_BIT_EQUAL_SHARE,
+                check(share >= kv.KERNEL_BIT_EQUAL_SHARE,
                       f"{at}: bit-equal on a share {share} < {kv.KERNEL_BIT_EQUAL_SHARE} "
                       "of its entries")
             if harness:
@@ -3992,9 +3996,9 @@ def phase_kernel_variants(ptxas: dict) -> list:
                             plain_ms=cuda_ms(lambda: kv.variant_fwd_reference(q, k, v, body),
                                              iters=3, warmup=1))
                 if body in VARIANT_PRODUCTS:
-                    case.update(rates(body, case["ms"]),
-                                device_ms=sum(_kernel_times(run, "softmax_fwd_wgmma").values()),
-                                ptxas={n: x for n, x in ptxas.items() if "softmax_fwd_wgmma" in n})
+                    kernel = f"{body}_fwd_wgmma"
+                    case.update(rates(body, case["ms"], sum(_kernel_times(run, kernel).values())),
+                                ptxas={n: x for n, x in ptxas.items() if kernel in n})
                 at_shape[body] = case
             cases.append(case)
             del out, again, ref
@@ -4012,8 +4016,7 @@ def phase_kernel_variants(ptxas: dict) -> list:
                                              iters=3, warmup=1))
                 if body in VARIANT_PRODUCTS:  # each body's rows and columns kernels
                     passes = _kernel_times(run, f"{body}_")
-                    case.update(rates(body, case["ms"]), passes_ms=passes,
-                                device_ms=sum(passes.values()),
+                    case.update(rates(body, case["ms"], sum(passes.values())), passes_ms=passes,
                                 ptxas={n: x for n, x in ptxas.items() if f"{body}_" in n})
                 at_shape[body] = case
             cases.append(case)
@@ -4114,6 +4117,7 @@ def phase_kernel_variants(ptxas: dict) -> list:
         extra = {k: c[k] for k in ("tolerance", "err_over_tolerance", "grads", "bit_equal_share",
                                    "ms_spread", "device_ms", "passes_ms", "products_counted",
                                    "products_executed", "tflops_counted", "tflops_executed",
+                                   "device_tflops_counted", "device_tflops_executed",
                                    "ptxas") if k in c}
         row = {"body": body, "shape": c["shape"], "dtype": c["dtype"],
                "max_abs_err": c["max_abs_err"], **extra, "ms": c["ms"],

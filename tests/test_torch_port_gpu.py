@@ -1347,8 +1347,8 @@ def _variant_inputs(cuda, dtype, shape, seed):
 def test_variant_fwd_kernel_matches_plain(cuda, dtype, shape, body):
     """csrc/attention_variants_fwd.cu against variant_fwd_reference at the
     chip_smoke shapes (and a ragged S of 65), one launch counted, a rerun
-    bit-equal, the bf16 softmax bit-equal to the plain version on the share
-    the module asks."""
+    bit-equal, a bf16 forward (softmax, dots) bit-equal to the plain version
+    on the share the module asks."""
     from amuse_tpu_torch.ops import kernel_variants as kv
 
     q, k, v, _ = _variant_inputs(cuda, dtype, shape, 3)
@@ -1362,9 +1362,30 @@ def test_variant_fwd_kernel_matches_plain(cuda, dtype, shape, body):
     err = (out.float() - ref).abs().max().item()
     assert err <= kv.kernel_limit(dtype, body, ref.abs().max().item()), err
     assert torch.equal(out, again)
-    if body == "softmax" and dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         share = kv.bit_equal_share(out.float(), ref)
         assert share >= kv.KERNEL_BIT_EQUAL_SHARE, share
+
+
+def test_dots_kernel_refuses_a_scale_not_a_power_of_two(cuda):
+    """The bf16 dots kernel applies the scale to the float32 output, which
+    equals the TPU body's rounding only for a power of two: its C entry
+    returns cudaErrorInvalidValue (1) for 0.13 and launches nothing."""
+    import ctypes
+
+    from amuse_tpu_torch.ops import _build
+    from amuse_tpu_torch.ops import kernel_variants as kv
+
+    q = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16, device=cuda)
+    out = torch.full_like(q, 1.0)
+    lib = _build.load("attention_variants_fwd")
+    for scale, want in ((0.13, 1), (kv.SCALE, 0)):
+        rc = lib.variant_fwd(*(ctypes.c_void_p(t.data_ptr()) for t in (q, q, q, out)), 1,
+                             kv.FWD_BODIES["dots"], 1, 1, 64, ctypes.c_float(scale),
+                             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        torch.cuda.synchronize()
+        assert rc == want, (scale, rc)
+        assert out.eq(1.0 if want else 0.0).all()
 
 
 @pytest.mark.parametrize("body", ["v1", "v4", "v0"])

@@ -29,6 +29,7 @@ Limits, each beside the readings taken on the CPU when it was written:
 """
 
 import functools
+import math
 import types
 
 import jax
@@ -141,6 +142,47 @@ def test_chain_matches_jax(interpret):
     want = np.asarray(jnp.asarray(jgrad, jnp.float32))
     err = np.abs(grad.float().numpy() - want).max()
     assert err <= 2e-2 * np.abs(want).max(), err / np.abs(want).max()
+
+
+def test_dots_scale_folds_into_the_output():
+    """The bf16 dots kernel forms P = bf16(s) and multiplies the float32 O by
+    SCALE at the store. SCALE is a power of two, so that equals the plain
+    version (P = bf16(s * SCALE)) bit for bit before the final cast: on
+    seeded (2, 2, 40, 64) bf16 inputs whose first key gives half the rows
+    scores in bf16's largest binade [2^127, 2^128), the rest scores near 1.
+    A scale that is not a power of two (0.13) breaks the equality.
+
+    The largest score, 1.96 * 2^127, stays below bf16's overflow edge
+    (2 - 2^-8) * 2^127 on purpose: at or past it bf16(s) is inf while
+    bf16(s * SCALE) is finite, so the fold holds only below it. v is clipped
+    for the same reason, so that the unscaled sum of bf16(s) v stays below
+    float32's largest value."""
+    assert math.frexp(tkv.SCALE)[0] == 0.5
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.normal(size=(2, 2, 40, 64)) for _ in range(3))
+    q[:, :, ::2, 0] = 2.0**63 * rng.uniform(1.0, 1.4, size=(2, 2, 20))
+    k[:, :, 0, 0] = 2.0**64 * rng.uniform(1.0, 1.4, size=(2, 2))
+    k[:, :, 0, 1:] = 0.0
+    v = np.clip(v, -2.0, 2.0) / 4  # |O| stays below 2^127 before the scale
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16).float() for x in (q, k, v))
+    s = q @ k.transpose(-1, -2)
+    assert s.abs().max() >= 2.0**127 and torch.isfinite(s).all()
+
+    def bf16(x):
+        return x.to(torch.bfloat16).float()
+
+    def plain(scale):
+        return bf16(s * scale) @ v
+
+    def folded(scale):
+        return (bf16(s) @ v) * scale
+
+    assert torch.isfinite(folded(tkv.SCALE)).all()
+    assert torch.equal(plain(tkv.SCALE), folded(tkv.SCALE))
+    assert torch.equal(plain(tkv.SCALE).to(torch.bfloat16),
+                       tkv.variant_fwd_reference(*(x.to(torch.bfloat16) for x in (q, k, v)),
+                                                 "dots"))
+    assert not torch.equal(plain(0.13), folded(0.13))
 
 
 def test_counters_stay_on_the_cpu_path():
