@@ -1,0 +1,7 @@
+"""Device ms a step of the fused Adam kernels (torch.optim.Adam(fused=True)), by kernel name."""
+
+from portbench.readers import kernels_ms_per_request
+
+
+def read(ctx):
+    return kernels_ms_per_request(ctx, "Adam")
