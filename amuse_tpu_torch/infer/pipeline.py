@@ -11,6 +11,13 @@ So one ``wav_to_motion`` launches K1 ``depth`` times (12) and K3 once. The
 AST runs in ``dtype`` (bfloat16 by default); the denoiser and the VAE run in
 float32, as in the JAX pipeline. Parameters are state dicts under the
 reference AMUSE key names (``PipelineParams``).
+
+Under ``utils.profiling.recording()`` a call records the spans
+``infer.request`` (the root: ``wav_to_motion``, or ``infer_wav`` around
+it), ``infer.upload`` (the audio's copy to the device), ``infer.fbank``,
+``infer.ast`` (the three encoders, K1), ``infer.sampler`` (K3),
+``infer.decode`` (the VAE decode and the rotations) and, in ``infer_wav``,
+``infer.download`` (the motion's copy to the host).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from amuse_tpu_torch.ops.denoiser_kernel import (
     pack_denoiser,
     schedule_conditioning,
 )
+from amuse_tpu_torch.utils.profiling import request_span, span
 
 ENCODERS = ("con", "emo", "sty")  # stacking order of the AST encoders
 
@@ -113,31 +121,37 @@ class GesturePipeline:
         self.ast_params = _stacked_ast(params.ast, ast_cfg, dtype, self.device)
 
     def _chunks(self, chunks) -> torch.Tensor:
-        return torch.as_tensor(chunks, dtype=torch.float32).to(self.device)
+        with span("infer.upload"):
+            return torch.as_tensor(chunks, dtype=torch.float32).to(self.device)
 
     @torch.inference_mode()
     def encode_audio(self, chunks) -> dict[str, torch.Tensor]:
         """(N, 160000) chunks -> {con, emo, sty} (N, feature_dim) float32 features."""
-        fb = fbank_mod.wav_chunk_to_fbank(self._chunks(chunks))
-        feats = ast_features(self.ast_params, fb, self.ast_cfg, self.frame_based_feats)
-        return dict(zip(ENCODERS, feats.unbind(0)))
+        wave = self._chunks(chunks)
+        with span("infer.fbank"):
+            fb = fbank_mod.wav_chunk_to_fbank(wave)
+        with span("infer.ast"):
+            feats = ast_features(self.ast_params, fb, self.ast_cfg, self.frame_based_feats)
+            return dict(zip(ENCODERS, feats.unbind(0)))
 
     @torch.inference_mode()
     def generate_latents(self, con, emo=None, sty=None,
                          generator: Optional[torch.Generator] = None,
                          initial_latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """eta=0 DDIM -> motion latents (N, 1, latent_dim) (kernel K3 on the card)."""
-        return ddim_sample_fused(
-            self.denoiser, self.schedule, con, emo, sty, self.num_inference_steps,
-            initial_latents=initial_latents, generator=generator,
-            packed=self.sampler_weights, conditioning=self.sampler_conditioning,
-        )
+        with span("infer.sampler"):
+            return ddim_sample_fused(
+                self.denoiser, self.schedule, con, emo, sty, self.num_inference_steps,
+                initial_latents=initial_latents, generator=generator,
+                packed=self.sampler_weights, conditioning=self.sampler_conditioning,
+            )
 
     @torch.inference_mode()
     def decode_motion(self, latents: torch.Tensor):
         """latents -> (poses (N, 300, 55, 3) axis-angle, trans (N, 300, 3))."""
-        feats = self.prior.decode(latents, self.prior_cfg.window)
-        return motion_mod.defeaturize(feats, self.smplx_rep, self.skip_trans)
+        with span("infer.decode"):
+            feats = self.prior.decode(latents, self.prior_cfg.window)
+            return motion_mod.defeaturize(feats, self.smplx_rep, self.skip_trans)
 
     @torch.inference_mode()
     def encode_motion(self, feats: torch.Tensor,
@@ -160,21 +174,24 @@ class GesturePipeline:
     def wav_to_motion(self, chunks, generator: Optional[torch.Generator] = None,
                       initial_latents: Optional[torch.Tensor] = None):
         """(N, 160000) chunks -> (poses (N, 300, 55, 3), trans (N, 300, 3))."""
-        cond = self.encode_audio(chunks)
-        latents = self.generate_latents(cond["con"], cond["emo"], cond["sty"],
-                                        generator, initial_latents)
-        return self.decode_motion(latents)
+        with request_span("infer.request"):
+            cond = self.encode_audio(chunks)
+            latents = self.generate_latents(cond["con"], cond["emo"], cond["sty"],
+                                            generator, initial_latents)
+            return self.decode_motion(latents)
 
     def infer_wav(self, waveform: np.ndarray, seed: int = 0) -> dict:
         """Full-length waveform -> dict of numpy animation data (jaw zeroed for export)."""
-        chunks = fbank_mod.window_waveform(waveform)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        poses, trans = self.wav_to_motion(chunks, generator=generator)
-        return {
-            "poses": motion_mod.zero_jaw(poses).cpu().numpy(),  # (n_windows, 300, 55, 3)
-            "trans": trans.cpu().numpy(),  # (n_windows, 300, 3)
-            "fps": 30.0,
-        }
+        with request_span("infer.request"):
+            chunks = fbank_mod.window_waveform(waveform)
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            poses, trans = self.wav_to_motion(chunks, generator=generator)
+            with span("infer.download"):
+                return {
+                    "poses": motion_mod.zero_jaw(poses).cpu().numpy(),  # (n_windows, 300, 55, 3)
+                    "trans": trans.cpu().numpy(),  # (n_windows, 300, 3)
+                    "fps": 30.0,
+                }
 
 
 def init_random_params(

@@ -32,6 +32,13 @@ gather's backward returns each rank the gradient of its features summed
 over the ranks. A W-rank step is then the single-process step, dropout and
 augmentation included. The gradients are all-reduced between ``backward``
 and the optimizer's step, and the returned logs are the global batch's.
+
+Under ``utils.profiling.recording()`` a step records the spans
+``train.step`` (the root) and, inside it, ``train.augment``,
+``train.encode`` (K1), ``train.reconstruct`` (the swap, fusion and
+decoder), ``train.loss``, ``train.backward`` (K2) and ``train.optimizer``
+(``fill_missing_grads`` and Adam's step); ``batch_to_device`` records
+``train.upload``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
 from amuse_tpu_torch.parallel.mesh import GradSync
 from amuse_tpu_torch.train import losses as L
 from amuse_tpu_torch.train.checkpoint import load_optimizer
+from amuse_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -232,30 +240,36 @@ def loss_fn(model: ASTDisentangler, batch: dict, cfg: AudioTrainConfig,
         keep = (4 * big, (ar + grad_sync.rank * b + torch.arange(b, device=clean.device))
                 .reshape(-1))
     if augment and (cfg.noise_aug or cfg.freq_mask or cfg.time_mask):
-        target, flat = spec_augment(generator, quad, cfg.freq_mask, cfg.time_mask,
-                                    cfg.noise_aug, keep)
+        with span("train.augment"):
+            target, flat = spec_augment(generator, quad, cfg.freq_mask, cfg.time_mask,
+                                        cfg.noise_aug, keep)
     else:
         target = flat = quad
-    enc = model.encode(flat, cfg.frame_based_feats)
-    f_emo, f_sty, f_con = (enc[k]["feature"].view(4, b, -1) for k in ("emo", "sty", "con"))
-    stack = swap_groups(f_emo, f_sty, f_con)  # (16, B, 3 fd)
-    if keep is None:
-        recons = model.reconstruct(stack, generator)  # (16, B, T, F)
-    else:  # the global stack through fusion + decoder, this rank's rows kept
-        recons = model.reconstruct(grad_sync.gather(stack, dim=1),
-                                   generator)[:, grad_sync.rows(b)]
-    return L.ast_swap_losses(
-        recons, target.view(4, b, t_len, f_len), enc["emo"]["logits"].view(4, b, -1),
-        enc["sty"]["logits"].view(4, b, -1), f_con,
-        batch["emo_id"], batch["a1_id"], batch["a2_id"])
+    with span("train.encode"):
+        enc = model.encode(flat, cfg.frame_based_feats)
+    with span("train.reconstruct"):
+        f_emo, f_sty, f_con = (enc[k]["feature"].view(4, b, -1) for k in ("emo", "sty", "con"))
+        stack = swap_groups(f_emo, f_sty, f_con)  # (16, B, 3 fd)
+        if keep is None:
+            recons = model.reconstruct(stack, generator)  # (16, B, T, F)
+        else:  # the global stack through fusion + decoder, this rank's rows kept
+            recons = model.reconstruct(grad_sync.gather(stack, dim=1),
+                                       generator)[:, grad_sync.rows(b)]
+    with span("train.loss"):
+        return L.ast_swap_losses(
+            recons, target.view(4, b, t_len, f_len), enc["emo"]["logits"].view(4, b, -1),
+            enc["sty"]["logits"].view(4, b, -1), f_con,
+            batch["emo_id"], batch["a1_id"], batch["a2_id"])
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch from ``data.stage1.batches`` -> device tensors."""
-    out = {k: torch.as_tensor(np.asarray(v), dtype=torch.long).to(device)
-           for k, v in batch.items() if k != "fbanks"}
-    out["fbanks"] = torch.as_tensor(np.asarray(batch["fbanks"]), dtype=torch.float32).to(device)
-    return out
+    with span("train.upload"):
+        out = {k: torch.as_tensor(np.asarray(v), dtype=torch.long).to(device)
+               for k, v in batch.items() if k != "fbanks"}
+        out["fbanks"] = torch.as_tensor(np.asarray(batch["fbanks"]),
+                                        dtype=torch.float32).to(device)
+        return out
 
 
 def fill_missing_grads(model: torch.nn.Module, frame_based_feats: bool) -> None:
@@ -289,18 +303,21 @@ def make_train_step(cfg: AudioTrainConfig = AudioTrainConfig(),
     def train_step(state: AudioTrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
                    stochastic: bool = True) -> dict:
-        state.model.train(stochastic)
-        total, logs = loss_fn(state.model, batch, cfg, generator, augment=stochastic,
-                              grad_sync=grad_sync)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if grad_sync is not None:
-            grad_sync.all_reduce(state.model.parameters())
-            logs = grad_sync.mean_logs(logs)
-        fill_missing_grads(state.model, cfg.frame_based_feats)
-        state.optimizer.step()
-        state.step += 1
-        return {k: v.detach() for k, v in logs.items()}
+        with span("train.step"):
+            state.model.train(stochastic)
+            total, logs = loss_fn(state.model, batch, cfg, generator, augment=stochastic,
+                                  grad_sync=grad_sync)
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                total.backward()
+            if grad_sync is not None:
+                grad_sync.all_reduce(state.model.parameters())
+                logs = grad_sync.mean_logs(logs)
+            with span("train.optimizer"):
+                fill_missing_grads(state.model, cfg.frame_based_feats)
+                state.optimizer.step()
+            state.step += 1
+            return {k: v.detach() for k, v in logs.items()}
 
     def set_lr(state: AudioTrainState, epoch: int) -> AudioTrainState:
         for group in state.optimizer.param_groups:

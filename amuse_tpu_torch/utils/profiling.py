@@ -1,10 +1,18 @@
-"""Tracing and profiling: device traces, per-step timing, memory statistics.
+"""The program's span recorder: spans of its layers, per-phase timing.
 
-The port's copy of ``amuse_tpu/utils/profiling.py``: ``device_trace`` runs
-``torch.profiler`` around a block and writes its trace into a directory
-(``tensorboard_trace_handler``'s Chrome-trace JSON); ``StepTimer`` aggregates
-per-phase wall-clock times with p50/p95; ``memory_stats`` reads
-``torch.cuda.memory_stats`` of one device.
+``StepTimer.phase(name)`` records a span (``Span``) and its duration, and
+``summary()``/``report()`` aggregate the durations with p50/p95, as the
+JAX package's ``amuse_tpu/utils/profiling.py`` does. The layers open their
+spans with the module-level ``span(name)``, which records into the recorder
+that ``recording()`` makes active for its block and does nothing otherwise.
+
+Spans stay in memory. Their ends are stamped in integer ns with
+``time.time_ns()``, the Unix clock that ``torch.profiler``'s kineto records
+carry (host operators, and on a card the CUDA runtime calls that CUPTI
+records), so a span, the runtime call that launched a device operation and
+the operation itself lie on one timeline.
+
+Single-threaded: spans are opened only on the thread that runs the model.
 """
 
 from __future__ import annotations
@@ -12,41 +20,53 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from pathlib import Path
+from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 
-@contextlib.contextmanager
-def device_trace(log_dir, device="cuda"):
-    """Trace the block with torch.profiler (host, and the card's kernels when
-    ``device`` is CUDA); the trace is written into ``log_dir`` when the block
-    ends. Yields the profiler, whose ``key_averages()`` sums time by kernel."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+@dataclass(slots=True)
+class Span:
+    """One recorded span: ``parent`` is the index of the innermost span open
+    when it began (-1 for a root), ``request`` the id its root opened."""
 
-    activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
-        yield prof
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    request: int
 
 
 class StepTimer:
-    """Per-phase wall-clock aggregation with p50/p95 reporting."""
+    """Per-phase wall-clock aggregation with p50/p95 reporting; each
+    ``phase`` also records a ``Span`` into ``spans`` (in the order the spans
+    began, so a parent precedes its children)."""
 
     def __init__(self):
         self._samples = defaultdict(list)
+        self.spans: list[Span] = []
+        self._open: list[int] = []
+        self._requests = 0
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
+        if self._open:
+            parent = self._open[-1]
+            request = self.spans[parent].request
+        else:
+            parent, request = -1, self._requests
+            self._requests += 1
+        index = len(self.spans)
+        start = time.time_ns()
+        self.spans.append(Span(name, start, start, parent, request))
+        self._open.append(index)
         try:
             yield
         finally:
-            self._samples[name].append(time.perf_counter() - t0)
+            end = time.time_ns()
+            self._open.pop()
+            self.spans[index].end_ns = end
+            self._samples[name].append((end - start) * 1e-9)
 
     def record(self, name: str, seconds: float) -> None:
         self._samples[name].append(seconds)
@@ -74,8 +94,29 @@ class StepTimer:
         return "\n".join(lines)
 
 
-def memory_stats(device="cuda") -> dict:
-    """The caching allocator's statistics of a CUDA device (bytes and counts,
-    ``torch.cuda.memory_stats``); {} for the CPU, which keeps none."""
-    dev = torch.device(device)
-    return dict(torch.cuda.memory_stats(dev)) if dev.type == "cuda" else {}
+_ACTIVE: StepTimer | None = None
+_OFF = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def recording():
+    """Make a fresh ``StepTimer`` the active recorder for the block; yields it."""
+    global _ACTIVE
+    timer = StepTimer()
+    previous, _ACTIVE = _ACTIVE, timer
+    try:
+        yield timer
+    finally:
+        _ACTIVE = previous
+
+
+def span(name: str):
+    """A span of the active recorder; with none active, one shared context
+    that does nothing."""
+    return _OFF if _ACTIVE is None else _ACTIVE.phase(name)
+
+
+def request_span(name: str):
+    """A root span: ``span(name)`` unless a span is open already (an entry
+    point called from inside another opens no second request)."""
+    return _OFF if _ACTIVE is None or _ACTIVE._open else _ACTIVE.phase(name)

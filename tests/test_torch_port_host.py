@@ -8,10 +8,15 @@ matrices atol 1e-5, and as vectors where the angle is below pi - 1e-2 (at pi
 the axis' sign is a rounding choice); everything computed in numpy and scipy
 by both packages is held equal (atol 1e-12 where float64 sums run in
 another order).
+
+The port's span recorder (``utils.profiling.recording``, ``span``) is
+tested on its own, and over the spans that a tiny CPU pipeline and stage-1
+step record.
 """
 
 import dataclasses
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -319,15 +324,161 @@ def test_step_timer_matches_jax():
     assert timer.summary()["fails"]["count"] == 2
 
 
-def test_device_trace_and_memory_stats(tmp_path):
-    """device_trace writes torch.profiler's trace of the block into the
-    directory; the CPU keeps no allocator statistics."""
-    with profiling.device_trace(tmp_path / "trace", device="cpu") as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    traces = list((tmp_path / "trace").glob("*.json"))
-    assert len(traces) == 1 and "traceEvents" in json.loads(traces[0].read_text())
-    assert any("mm" in e.key for e in prof.key_averages())
-    assert profiling.memory_stats("cpu") == {}
+def test_spans_nest_under_the_span_open_when_they_began():
+    """Each phase records a span whose parent is the innermost span open
+    when it began, in the order the spans began, ends after starts."""
+    timer = profiling.StepTimer()
+    with timer.phase("a"):
+        with timer.phase("b"):
+            with timer.phase("c"):
+                pass
+        with timer.phase("d"):
+            pass
+    with timer.phase("e"):
+        pass
+    assert [(s.name, s.parent) for s in timer.spans] == [
+        ("a", -1), ("b", 0), ("c", 1), ("d", 0), ("e", -1)]
+    for s in timer.spans:
+        assert isinstance(s.start_ns, int) and s.start_ns <= s.end_ns
+        if s.parent >= 0:
+            outer = timer.spans[s.parent]
+            assert outer.start_ns <= s.start_ns and s.end_ns <= outer.end_ns
+    assert timer.summary()["b"]["count"] == 1
+
+
+def test_a_root_opens_a_request_its_children_share():
+    """Children carry their root's request id; each new root opens the next."""
+    with profiling.recording() as rec:
+        for _ in range(3):
+            with profiling.span("root"):
+                with profiling.span("child"):
+                    with profiling.span("grandchild"):
+                        pass
+                with profiling.span("child"):
+                    pass
+        with profiling.span("lone"):
+            pass
+    by_request = {}
+    for s in rec.spans:
+        by_request.setdefault(s.request, []).append(s.name)
+    assert by_request == {0: ["root", "child", "grandchild", "child"],
+                          1: ["root", "child", "grandchild", "child"],
+                          2: ["root", "child", "grandchild", "child"], 3: ["lone"]}
+
+
+def test_a_span_that_raises_is_recorded_and_counted():
+    """The block's exception passes through; the span is closed, its parent
+    is open again for the next span, and summary() counts it."""
+    with profiling.recording() as rec:
+        with profiling.span("outer"):
+            with pytest.raises(ValueError):
+                with profiling.span("fails"):
+                    raise ValueError
+            with profiling.span("after"):
+                pass
+    assert [(s.name, s.parent) for s in rec.spans] == [("outer", -1), ("fails", 0),
+                                                     ("after", 0)]
+    assert rec.spans[1].end_ns >= rec.spans[1].start_ns
+    assert rec.summary()["fails"]["count"] == 1
+
+
+def test_off_span_is_one_shared_object_that_calls_nothing():
+    """With no recorder active (after a recording block too), span() and
+    request_span() return the same object every call, record nothing, and
+    the block calls no function but the context's own two methods: no
+    allocation of a context, no profiler and no CUDA call."""
+    with profiling.recording() as rec:
+        pass
+    shared = profiling.span("a")
+    assert profiling.span("b") is shared and profiling.request_span("c") is shared
+    calls = []
+
+    def hook(frame, event, arg):
+        if event in ("call", "c_call"):
+            calls.append(arg.__name__ if event == "c_call" else frame.f_code.co_name)
+
+    sys.setprofile(hook)
+    try:
+        for name in ("x", "y"):
+            with profiling.span(name):
+                pass
+            with profiling.request_span(name):
+                pass
+    finally:
+        sys.setprofile(None)
+    assert [c for c in calls if c != "setprofile"] == [
+        "span", "__enter__", "__exit__", "request_span", "__enter__", "__exit__"] * 2
+    assert rec.spans == [] and profiling._ACTIVE is None
+
+
+INFER_SPANS = ["infer.request", "infer.upload", "infer.fbank", "infer.ast", "infer.sampler",
+               "infer.decode"]
+
+
+@pytest.fixture(scope="module")
+def tiny_pipeline():
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.models.denoiser import DenoiserConfig
+    from amuse_tpu_torch.models.vae import PriorConfig
+
+    kw = (PriorConfig(latent_dim=16, ff_size=32, num_layers=3, num_heads=2),
+          DenoiserConfig(latent_dim=16, ff_size=32, num_layers=3, num_heads=2, cond_dim=12),
+          ASTConfig(embed_dim=16, depth=1, num_heads=2, feature_dim=12))
+    return GesturePipeline(init_random_params(0, *kw), *kw, dtype=torch.float32,
+                           num_inference_steps=2, device="cpu")
+
+
+def _names_by_request(spans) -> dict:
+    out = {}
+    for s in spans:
+        out.setdefault(s.request, []).append(s.name)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["wav_to_motion", "infer_wav"])
+def test_inference_records_the_layer_spans(tiny_pipeline, entry):
+    """Two calls are two requests, each with every span of its entry once:
+    ``infer_wav``'s nested ``wav_to_motion`` opens no second root, and every
+    other span is a child of the one root."""
+    wave = np.random.default_rng(3).normal(size=2 * 160_000).astype(np.float32) * 0.1
+    with profiling.recording() as rec:
+        for _ in range(2):
+            if entry == "infer_wav":
+                tiny_pipeline.infer_wav(wave, seed=1)
+            else:
+                tiny_pipeline.wav_to_motion(wave.reshape(2, -1))
+    want = INFER_SPANS + (["infer.download"] if entry == "infer_wav" else [])
+    assert _names_by_request(rec.spans) == {0: want, 1: want}
+    roots = [i for i, s in enumerate(rec.spans) if s.parent == -1]
+    assert [rec.spans[i].name for i in roots] == ["infer.request"] * 2
+    assert all(s.parent in roots for s in rec.spans if s.parent != -1)
+
+
+def test_a_train_step_records_the_layer_spans():
+    """batch_to_device outside a step is its own request (``train.upload``);
+    a step records its root and each phase once, all children of the root."""
+    from amuse_tpu_torch.models.ast import ASTConfig
+    from amuse_tpu_torch.train import audio as ta
+
+    cfg = ta.AudioTrainConfig(freq_mask=8, time_mask=16)
+    ast_cfg = ASTConfig(input_tdim=64, input_fdim=32, embed_dim=16, depth=1, num_heads=2,
+                        feature_dim=12)
+    state = ta.init_state(0, cfg, torch.float32, ast_cfg, device="cpu")
+    step, _ = ta.make_train_step(cfg)
+    rng = np.random.default_rng(4)
+    batch = {"fbanks": rng.normal(size=(2, 4, 64, 32)).astype(np.float32),
+             "emo_id": np.array([1, 2]), "a1_id": np.array([0, 3]), "a2_id": np.array([4, 5])}
+    with profiling.recording() as rec:
+        for _ in range(2):
+            step(state, ta.batch_to_device(batch, torch.device("cpu")),
+                 torch.Generator().manual_seed(0))
+    want = ["train.step", "train.augment", "train.encode", "train.reconstruct", "train.loss",
+            "train.backward", "train.optimizer"]
+    assert _names_by_request(rec.spans) == {0: ["train.upload"], 1: want,
+                                           2: ["train.upload"], 3: want}
+    assert all(s.parent == -1 if s.name in ("train.step", "train.upload")
+               else rec.spans[s.parent].name == "train.step" for s in rec.spans)
 
 
 # ---------------------------------------------------------------- cluster/sweep.py
