@@ -11,7 +11,10 @@ the reference's stride-10 ``Conv2d``, without cuDNN.
 The trunk is written once, in ``ast_encode``, over parameters stacked along
 a leading encoder axis G, so the three encoders run as batched matmuls and
 one attention call of batch G*N per block (kernel K1 forward; kernel K2 in
-the backward when the call is differentiated). ``ASTEncoder`` (reference
+the backward when the call is differentiated). With grad off, each
+LayerNorm and the residual add in front of it are one ``add_layer_norm``
+(a hand-written kernel on CUDA), and ``ast_encode`` hands each block's MLP
+residual to the next LayerNorm unadded. ``ASTEncoder`` (reference
 keys ``v.*``, ``feature_head.*``, ``mlp_head*``) runs the same code with
 G = 1. ``ASTDisentangler`` is the stage-1 model (reference ``AST_EVP``):
 three encoders, the fusion blocks and the fbank decoder, computing in its
@@ -32,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from amuse_tpu_torch.models.transformer import EncoderLayer
 from amuse_tpu_torch.ops.attention import mha, mha_train
+from amuse_tpu_torch.ops.layer_norm import add_layer_norm, layer_norm_reference
 
 _VIT_LN_EPS = 1e-6
 _HEAD_LN_EPS = 1e-5
@@ -168,12 +172,22 @@ def _pre(prefix: str, name: str) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
-def _layer_norm(x: torch.Tensor, p: dict, name: str, eps: float) -> torch.Tensor:
-    """Per-encoder LayerNorm over the last dim of x (G, ..., E), in float32."""
+def _add_norm(x: torch.Tensor, delta: Optional[torch.Tensor], p: dict, name: str,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, LayerNorm(s)) over the last dim of x (G, ..., E) with the
+    per-encoder LayerNorm ``name``, for s = x + delta (s = x when delta is
+    None); statistics and affine in float32.
+
+    With grad off, one ``add_layer_norm`` (a kernel on CUDA); with grad on,
+    the plain add and ``layer_norm_reference``, which autograd differentiates.
+    """
     w, b = p[f"{name}.weight"], p[f"{name}.bias"]
-    shape = (w.shape[0],) + (1,) * (x.ndim - 2) + (w.shape[-1],)
-    y = F.layer_norm(x.float(), x.shape[-1:], eps=eps)
-    return (y * w.view(shape).float() + b.view(shape).float()).to(x.dtype)
+    if torch.is_grad_enabled():
+        s = x if delta is None else x + delta
+        return s, layer_norm_reference(s, w, b, eps)
+    if delta is None:
+        return x, add_layer_norm(x, None, w, b, eps)
+    return add_layer_norm(x, delta, w, b, eps)
 
 
 def _linear(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
@@ -184,26 +198,35 @@ def _linear(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
     return y.reshape(x.shape[:-1] + (w.shape[1],))
 
 
+def _block(x: torch.Tensor, delta: Optional[torch.Tensor], p: dict, prefix: str,
+           num_heads: int, gelu_tanh: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pre-norm ViT block on x + delta, delta the previous block's pending
+    MLP residual (or None) -> (x', mlp): the block's output is x' + mlp, left
+    for the next LayerNorm to add."""
+    x, h = _add_norm(x, delta, p, _pre(prefix, "norm1"), _VIT_LN_EPS)
+    g, n, s, e = x.shape
+    qkv = _linear(h, p, _pre(prefix, "attn.qkv")).view(g * n, s, 3, num_heads, e // num_heads)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        o = mha_train(qkv)
+    else:  # strided (G*N, H, S, hd) views of the fused projection: no copies
+        o = mha(*(qkv[:, :, i].transpose(1, 2) for i in range(3)))
+    attn = _linear(o.transpose(1, 2).reshape(g, n, s, e), p, _pre(prefix, "attn.proj"))
+    x, h = _add_norm(x, attn, p, _pre(prefix, "norm2"), _VIT_LN_EPS)
+    h = F.gelu(_linear(h, p, _pre(prefix, "mlp.fc1")),
+               approximate="tanh" if gelu_tanh else "none")
+    return x, _linear(h, p, _pre(prefix, "mlp.fc2"))
+
+
 def vit_block(x: torch.Tensor, p: dict, prefix: str, num_heads: int,
               gelu_tanh: bool = False) -> torch.Tensor:
     """One pre-norm ViT block on x (G, N, S, E) with stacked params ``p``.
 
     Attention is ``mha_train`` (K1 forward, K2 backward on CUDA) when the
-    call is differentiated, else the forward-only ``mha``.
+    call is differentiated, else the forward-only ``mha``; with grad off each
+    LayerNorm and the residual add before it are one ``add_layer_norm``.
     """
-    g, n, s, e = x.shape
-    hd = e // num_heads
-    h = _layer_norm(x, p, _pre(prefix, "norm1"), _VIT_LN_EPS)
-    qkv = _linear(h, p, _pre(prefix, "attn.qkv")).view(g * n, s, 3, num_heads, hd)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        o = mha_train(qkv)
-    else:  # strided (G*N, H, S, hd) views of the fused projection: no copies
-        o = mha(*(qkv[:, :, i].transpose(1, 2) for i in range(3)))
-    x = x + _linear(o.transpose(1, 2).reshape(g, n, s, e), p, _pre(prefix, "attn.proj"))
-    h = _layer_norm(x, p, _pre(prefix, "norm2"), _VIT_LN_EPS)
-    h = F.gelu(_linear(h, p, _pre(prefix, "mlp.fc1")),
-               approximate="tanh" if gelu_tanh else "none")
-    return x + _linear(h, p, _pre(prefix, "mlp.fc2"))
+    x, mlp = _block(x, None, p, prefix, num_heads, gelu_tanh)
+    return x + mlp
 
 
 def ast_encode(p: dict, spec: torch.Tensor, cfg: ASTConfig,
@@ -226,16 +249,17 @@ def ast_encode(p: dict, spec: torch.Tensor, cfg: ASTConfig,
     cls = p["v.cls_token"].view(g, 1, 1, e).expand(g, n, 1, e)
     dist = p["v.dist_token"].view(g, 1, 1, e).expand(g, n, 1, e)
     x = torch.cat([cls, dist, x], dim=2) + pos.view(g, 1, -1, e)
+    delta = None  # the last block's MLP output, added by the next LayerNorm
     for i in range(cfg.depth):
-        args = (x, p, f"v.blocks.{i}", cfg.num_heads, cfg.gelu_tanh)
+        args = (p, f"v.blocks.{i}", cfg.num_heads, cfg.gelu_tanh)
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(vit_block, *args, use_reentrant=False)
+            x = checkpoint(vit_block, x, *args, use_reentrant=False)
         else:
-            x = vit_block(*args)
-    x = _layer_norm(x, p, "v.norm", _VIT_LN_EPS)
+            x, delta = _block(x, delta, *args)
+    _, x = _add_norm(x, delta, p, "v.norm", _VIT_LN_EPS)
     x_dist = 0.5 * (x[:, :, 0] + x[:, :, 1])
     pooled = x[:, :, 2:].mean(dim=2) if frame_based_feats else x_dist
-    h = _layer_norm(pooled, p, "feature_head.0", _HEAD_LN_EPS)
+    _, h = _add_norm(pooled, None, p, "feature_head.0", _HEAD_LN_EPS)
     return _linear(h, p, "feature_head.1"), x_dist
 
 

@@ -17,6 +17,7 @@
     python3 chip_smoke.py --only-distributed  # build, then the data-parallel phases alone
     python3 chip_smoke.py --only-orbax  # build, then a converted JAX train state resumed
     python3 chip_smoke.py --only-kernel-variants  # build, then the attention variants V1-V5
+    python3 chip_smoke.py --only-add-layer-norm  # build, then the add + LayerNorm kernel alone
 
 Builds the port's CUDA kernels from ``amuse_tpu_torch/csrc`` (one nvcc per
 source, in parallel), holds each kernel against its plain PyTorch version at
@@ -72,7 +73,11 @@ the kernels' launch counters that each went through its kernels:
     (4, 12, 1214, 64) bf16, timed beside SDPA; the entry point
     ``kernel_variants.main`` (parity, the 12-call chains of the K1+K2
     baseline and of each variant, timed), and one chain of each variant
-    counted (12 forward and 12 backward launches, no K1, K2 or K3).
+    counted (12 forward and 12 backward launches, no K1, K2 or K3);
+  * the residual add + LayerNorm kernel of the AST's inference path
+    (``ops/layer_norm.py``) at the ``infer.b32`` call's shape, with and
+    without the residual, against its plain path and timed beside its byte
+    bound (``wav_to_motion`` counts its 2 depth + 2 launches).
 
 Each phase prints one JSON line as it ends; after the ``{"kernels": [...]}``
 line and the card's ``name, power.limit`` line, the last line is
@@ -208,8 +213,8 @@ def _kernel_name(ptxas_line: str) -> str:
 
 
 # kernels that must build without spills: the wgmma attention kernels (the
-# float32 K2 kernels spill by design) and the sampler
-CLEAN_KERNELS = ("wgmma", "ddim_sampler")
+# float32 K2 kernels spill by design), the sampler and the add + LayerNorm
+CLEAN_KERNELS = ("wgmma", "ddim_sampler", "add_layer_norm")
 
 
 def phase_build() -> dict:
@@ -315,6 +320,70 @@ def phase_attention(rng_seed: int = 0) -> dict:
         cases.append(case)
     emit({"phase": "attention_k1", "cases": cases})
     return {tuple(c["shape"]): c for c in cases if c["shape"][2] == 1214}
+
+
+# the LayerNorm input of an infer.b32 call: 3 encoders x 32 windows x 1214 tokens x 768
+ALN_SHAPE = (3, 32, 1214, 768)
+# h against the plain path: one bf16 ulp, plus this share of the affine's
+# terms |w| (|y| + 1) + |b| where y w + b cancels (16 float32 rounding units;
+# the statistics are summed in other orders, tests/test_torch_port_gpu.py)
+ALN_AFFINE_REL = 2.0 ** -19
+
+
+def phase_add_layer_norm() -> dict:
+    """The residual add + LayerNorm kernel at ``ALN_SHAPE`` in bf16, with the
+    residual (as 24 of a call's 25 launches) and without, against its plain
+    path (the bf16 add and the five LayerNorm passes it replaced): s bit for
+    bit, h within one bf16 ulp and ``ALN_AFFINE_REL``; timed (``STEADY``)
+    beside its byte bound (x and delta read, s and h written; x read and h
+    written without)."""
+    import torch
+    import torch.nn.functional as F
+
+    from amuse_tpu_torch.ops.layer_norm import add_layer_norm, add_layer_norm_reference
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(ALN_SHAPE, generator=g, device="cuda") * 2 + 0.5).bfloat16()
+    delta = torch.randn(ALN_SHAPE, generator=g, device="cuda").bfloat16()
+    groups, width = ALN_SHAPE[0], ALN_SHAPE[-1]
+    w = (torch.randn((groups, width), generator=g, device="cuda") * 0.5 + 1).bfloat16()
+    b = torch.randn((groups, width), generator=g, device="cuda").bfloat16()
+    cases = {}
+    for name, d, tensors in (("with_delta", delta, 4), ("without_delta", None, 2)):
+        got = add_layer_norm(x, d, w, b, 1e-6)
+        want = add_layer_norm_reference(x, d, w, b, 1e-6)
+        torch.cuda.synchronize()
+        if d is not None:
+            check(torch.equal(got[0], want[0]), "add_layer_norm's s differs from the bf16 add")
+            got, want = got[1], want[1]
+        diff = (got.float() - want.float()).abs()
+        _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30))
+        ulp = torch.ldexp(torch.ones_like(diff), e - 8)
+        del got, want
+        s = x if d is None else x + d
+        terms = (F.layer_norm(s.float(), (width,), eps=1e-6).abs_().add_(1)
+                 .mul_(w.view(groups, 1, 1, width).float().abs())
+                 .add_(b.view(groups, 1, 1, width).float().abs()))
+        del s
+        # beyond one bf16 ulp, in units of the affine's terms |w| (|y| + 1) + |b|
+        excess = ((diff - ulp).clamp_min_(0) / terms).max().item()
+        check(excess <= ALN_AFFINE_REL, f"add_layer_norm ({name}) is off its plain path by one "
+                                        f"bf16 ulp and {excess} > {ALN_AFFINE_REL} of its terms")
+        nbytes = tensors * x.numel() * x.element_size()
+        case = {"max_abs_err": diff.max().item(), "max_ulps": (diff / ulp).max().item(),
+                "beyond_one_ulp_share": (diff > ulp).float().mean().item(),
+                "excess_of_terms": excess, "tolerance": ALN_AFFINE_REL,
+                "differing_share": (diff > 0).float().mean().item(),
+                "ms": cuda_ms(lambda: add_layer_norm(x, d, w, b, 1e-6), **STEADY),
+                "plain_ms": cuda_ms(lambda: add_layer_norm_reference(x, d, w, b, 1e-6)),
+                "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        case.update(tb_per_s=nbytes / case["ms"] / 1e9, bound_share=case["bound_ms"] / case["ms"])
+        cases[name] = case
+        del diff, ulp, terms
+    out = {"phase": "add_layer_norm", "shape": list(ALN_SHAPE), "dtype": "bfloat16",
+           "rows": x.numel() // width, "cases": cases}
+    emit(out)
+    return out
 
 
 def _sampler_flops(n: int, steps: int, t: int, d: int, ff: int, layers: int) -> float:
@@ -552,7 +621,7 @@ def phase_main_path() -> dict:
     import torch
 
     from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
-    from amuse_tpu_torch.ops import attention, denoiser_kernel
+    from amuse_tpu_torch.ops import attention, denoiser_kernel, layer_norm
 
     t0 = time.perf_counter()
     pipe = GesturePipeline(init_random_params(0), device="cuda")
@@ -564,12 +633,16 @@ def phase_main_path() -> dict:
         gen = torch.Generator(device="cuda").manual_seed(n)
         attention.mha.launches = 0
         denoiser_kernel.ddim_sample_fused.launches = 0
+        layer_norm.add_layer_norm.launches = 0
         poses, trans = pipe.wav_to_motion(chunks, generator=gen)
         torch.cuda.synchronize()
         launched = {"attention_fwd": attention.mha.launches,
-                    "ddim_sampler": denoiser_kernel.ddim_sample_fused.launches}
-        check(launched == {"attention_fwd": depth, "ddim_sampler": 1},
-              f"main path at N={n} launched {launched}, expected {depth} K1 and 1 K3")
+                    "ddim_sampler": denoiser_kernel.ddim_sample_fused.launches,
+                    "add_layer_norm": layer_norm.add_layer_norm.launches}
+        check(launched == {"attention_fwd": depth, "ddim_sampler": 1,
+                           "add_layer_norm": 2 * depth + 2},
+              f"main path at N={n} launched {launched}, expected {depth} K1, 1 K3 and "
+              f"{2 * depth + 2} add_layer_norm")
         check(tuple(poses.shape) == (n, 300, 55, 3) and tuple(trans.shape) == (n, 300, 3),
               f"wav_to_motion shapes {tuple(poses.shape)}, {tuple(trans.shape)}")
         check(torch.isfinite(poses).all().item() and torch.isfinite(trans).all().item(),
@@ -606,6 +679,7 @@ def _device_rows(prof) -> list:
 PORT_KERNEL_RECORDS = {
     "attention_fwd": (("attn_fwd",), 1), "attention_bwd": (("attn_bwd",), 3),
     "ddim_sampler": (("ddim_sampler_kernel",), 1),
+    "add_layer_norm": (("add_layer_norm_kernel",), 1),
     "variant_fwd": (("softmax_fwd_wgmma", "dots_fwd_wgmma", "fwd_f32<"), 1),
     "variant_bwd": (tuple(f"{b}_{p}_wgmma" for b in ("v4", "v1", "v0") for p in ("rows", "cols"))
                     + ("rows_f32<", "cols_f32<"), 2)}
@@ -635,8 +709,10 @@ PROFILER = {"sessions": 0, "short": []}  # what the run's sessions gave, for its
 
 def _port_counts() -> dict:
     from amuse_tpu_torch.ops import kernel_variants as kv
+    from amuse_tpu_torch.ops.layer_norm import add_layer_norm
 
     return {**_launch_counts(), "ddim_sampler": _sampler_launches(),
+            "add_layer_norm": add_layer_norm.launches,
             "variant_fwd": kv.variant_fwd.launches, "variant_bwd": kv.variant_bwd.launches}
 
 
@@ -4217,6 +4293,9 @@ def main(argv=None) -> int:
                         help="the same for the attention kernel variants V1-V5: each body's "
                              "forward and backward kernel against its plain version, the "
                              "entry point kernel_variants.main, one chain of each variant")
+    parser.add_argument("--only-add-layer-norm", action="store_true",
+                        help="the same for the residual add + LayerNorm kernel at the "
+                             "infer.b32 call's shape, timed beside its byte bound")
     parser.add_argument("--train-steps", type=int, default=4,
                         help="timed steps of the flagship train step (default 4)")
     args = parser.parse_args(argv)
@@ -4251,7 +4330,7 @@ def main(argv=None) -> int:
             or args.only_train_step or args.only_edit or args.only_prepare_data
             or args.only_train_gesture or args.only_eval or args.only_host_tasks
             or args.only_legacy or args.only_distributed or args.only_orbax
-            or args.only_kernel_variants):
+            or args.only_kernel_variants or args.only_add_layer_norm):
         if args.only_k1:
             phase_attention()
         if args.only_k2:
@@ -4279,6 +4358,8 @@ def main(argv=None) -> int:
             phase_orbax_resume()
         if args.only_kernel_variants:
             phase_kernel_variants(ptxas)
+        if args.only_add_layer_norm:
+            phase_add_layer_norm()
         emit({"phase": "profiler", **PROFILER})
         return 0
     # the attention variants first: after the legacy phase the first profiler
@@ -4290,6 +4371,7 @@ def main(argv=None) -> int:
     k3 = phase_sampler()
     phase_small_reference()
     launches = phase_main_path()
+    aln = phase_add_layer_norm()
     phase_cli()
     k2 = phase_attention_k2()
     phase_train_small_vs_cpu()
@@ -4359,6 +4441,15 @@ def main(argv=None) -> int:
                                          for part in ("stage1", "lpdm")}
         k["launches_per_gloo_rank"] = {part: [r[name] for r in dp["gloo"][part]["launches_per_rank"]]
                                        for part in ("lpdm", "stage1", "encode")}
+    with_delta = aln["cases"]["with_delta"]
+    kernels.append(
+        {"name": "add_layer_norm", "route": "cuda",
+         "source": "amuse_tpu_torch/csrc/add_layer_norm.cu", "replaces": None,
+         "shape": aln["shape"], "launches": launches["add_layer_norm"],
+         "launches_per": "wav_to_motion call", "max_abs_err": with_delta["max_abs_err"],
+         **{k: with_delta[k] for k in ("max_ulps", "excess_of_terms", "tolerance", "ms",
+                                        "plain_ms", "bound_ms", "bound_by", "bound_share")},
+         "library_ms": None, "without_delta": aln["cases"]["without_delta"]})
     kernels += variants
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths never launched")

@@ -263,16 +263,148 @@ def test_attention_forward_refuses_grad_on_cuda(cuda):
         assert mha(q, q, q).shape == q.shape
 
 
+# ------------------------------------------------- residual add + LayerNorm
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of t: 2^(floor(log2 |t|) - 7)."""
+    _, e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+
+
+# The kernel and the plain path compute the float32 statistics in different
+# orders (and rsqrt to 2 ulps), so y = (s - mean) * rstd differs in its last
+# bits, relative to |y| (rstd) and to 1 (the mean, in units of the row's
+# spread); where y w + b cancels to near 0 that is many bf16 ulps of h (128
+# seen at the b32 shape). So h may differ by one bf16 ulp of h plus 16
+# float32 rounding units (2^-19) of the affine's terms |w| (|y| + 1) + |b|.
+LN_AFFINE_REL = 2.0 ** -19
+
+
+def _ln_inputs(shape, dtype, device, with_delta, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*sh, scale=1.0, shift=0.0):
+        return (torch.randn(sh, generator=g, device=device) * scale + shift).to(dtype)
+
+    x = randn(*shape, scale=2.0, shift=0.5)
+    delta = randn(*shape) if with_delta else None
+    return x, delta, randn(shape[0], shape[-1], scale=0.5, shift=1.0), randn(shape[0], shape[-1])
+
+
+def _assert_add_layer_norm(got, x, delta, w, b, eps):
+    """s bit-equal to the plain add; h within one bf16 ulp plus
+    ``LN_AFFINE_REL`` of the affine's terms (bf16) or 1e-5 relative
+    (float32) of the plain path on the card."""
+    import torch.nn.functional as F
+
+    from amuse_tpu_torch.ops.layer_norm import layer_norm_reference
+
+    s_ref = x if delta is None else x + delta
+    h_ref = layer_norm_reference(s_ref, w, b, eps)
+    if delta is not None:
+        s, got = got
+        assert torch.equal(s, s_ref)
+    assert got.shape == h_ref.shape and got.dtype == h_ref.dtype
+    if got.dtype == torch.bfloat16:
+        shape = (w.shape[0],) + (1,) * (x.ndim - 2) + (w.shape[-1],)
+        y = F.layer_norm(s_ref.float(), s_ref.shape[-1:], eps=eps)
+        terms = w.view(shape).float().abs() * (y.abs() + 1) + b.view(shape).float().abs()
+        bound = torch.maximum(_bf16_ulp(got), _bf16_ulp(h_ref)) + LN_AFFINE_REL * terms
+        assert ((got.float() - h_ref.float()).abs() <= bound).all()
+    else:
+        torch.testing.assert_close(got, h_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [16, 64, 768])
+@pytest.mark.parametrize("rows", [(1, 37), (3, 13), (3, 2, 7)])  # 37, 39, 42 rows: not 8k
+@pytest.mark.parametrize("with_delta", [True, False])
+def test_add_layer_norm_kernel_matches_plain(cuda, dtype, width, rows, with_delta):
+    from amuse_tpu_torch.ops.layer_norm import add_layer_norm
+
+    x, delta, w, b = _ln_inputs(rows + (width,), dtype, cuda, with_delta)
+    before = add_layer_norm.launches
+    got = add_layer_norm(x, delta, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert add_layer_norm.launches == before + 1
+    _assert_add_layer_norm(got, x, delta, w, b, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_add_layer_norm_kernel_takes_offset_views_and_every_width(cuda, dtype):
+    """Inputs and parameters that start a row into their buffers, and each
+    width from 8 to 1024 in steps of 8 at G = 3 (every instantiation)."""
+    from amuse_tpu_torch.ops.layer_norm import add_layer_norm
+
+    for width in range(8, 1025, 8):
+        x, delta, w, b = _ln_inputs((3, 1 + width % 5, width), dtype, cuda, True, seed=width)
+        _assert_add_layer_norm(add_layer_norm(x, delta, w, b, 1e-5), x, delta, w, b, 1e-5)
+    x, delta, w, b = _ln_inputs((4, 9, 768), dtype, cuda, True, seed=1)
+    views = (x[1:], delta[1:], w[1:], b[1:])
+    assert all(t.storage_offset() > 0 for t in views)
+    for d in (views[1], None):
+        got = add_layer_norm(views[0], d, *views[2:], 1e-6)
+        torch.cuda.synchronize()
+        _assert_add_layer_norm(got, views[0], d, *views[2:], 1e-6)
+
+
+def test_add_layer_norm_kernel_refuses_what_it_does_not_take(cuda):
+    from amuse_tpu_torch.ops.layer_norm import add_layer_norm
+
+    x, delta, w, b = _ln_inputs((3, 8, 64), torch.bfloat16, cuda, True)
+    before = add_layer_norm.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        add_layer_norm(x.transpose(0, 1).contiguous().transpose(0, 1), delta, w, b, 1e-6)
+    flat = torch.zeros(x.numel() + 4, dtype=x.dtype, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):  # 8 bytes into its buffer
+        add_layer_norm(flat[4:].view(x.shape), delta, w, b, 1e-6)
+    with pytest.raises(ValueError, match="one device"):
+        add_layer_norm(x, delta.cpu(), w, b, 1e-6)
+    with pytest.raises(ValueError, match="width E = 36"):
+        add_layer_norm(x[..., :36].contiguous(), None, w[:, :36].contiguous(),
+                       b[:, :36].contiguous(), 1e-6)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        add_layer_norm(x.float().requires_grad_(), None, w.float(), b.float(), 1e-6)
+    assert add_layer_norm.launches == before
+    with torch.no_grad():
+        add_layer_norm(x.float().requires_grad_(), None, w.float(), b.float(), 1e-6)
+    assert add_layer_norm.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wav_to_motion_launches_add_layer_norm(cuda, dtype):
+    """A small-width wav_to_motion launches add_layer_norm 2 depth + 2 times
+    (norm1 and norm2 of each block, the trunk's norm, the feature head's)."""
+    import numpy as np
+
+    from amuse_tpu_torch.infer.pipeline import GesturePipeline, init_random_params
+    from amuse_tpu_torch.ops import attention, layer_norm
+
+    cfgs = _small_cfgs()
+    pipe = GesturePipeline(init_random_params(5, *cfgs), *cfgs, dtype=dtype,
+                           num_inference_steps=10, device=cuda)
+    chunks = np.random.default_rng(0).normal(scale=0.05, size=(3, 160000)).astype(np.float32)
+    before = (layer_norm.add_layer_norm.launches, attention.mha.launches)
+    poses, _ = pipe.wav_to_motion(chunks, generator=torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    depth = cfgs[2].depth
+    assert (layer_norm.add_layer_norm.launches - before[0],
+            attention.mha.launches - before[1]) == (2 * depth + 2, depth)
+    assert torch.isfinite(poses).all()
+
+
 @pytest.mark.parametrize("dtype,remat", [(torch.float32, False), (torch.bfloat16, False),
                                          (torch.bfloat16, True)])
 def test_train_step_launch_counts(cuda, dtype, remat):
     """One stage-1 train step at small width launches K1 and K2 once per ViT
     block (the three encoders stacked); remat replays each block's forward,
-    so K1 runs twice per block."""
+    so K1 runs twice per block. It launches no add_layer_norm."""
     import numpy as np
 
     from amuse_tpu_torch.models.ast import ASTConfig
     from amuse_tpu_torch.ops.attention import mha, mha_bwd
+    from amuse_tpu_torch.ops.layer_norm import add_layer_norm
     from amuse_tpu_torch.train import audio as ta
 
     ast_cfg = ASTConfig(input_tdim=64, input_fdim=32, embed_dim=64, depth=2, num_heads=2,
@@ -283,11 +415,12 @@ def test_train_step_launch_counts(cuda, dtype, remat):
     rng = np.random.default_rng(0)
     batch = ta.batch_to_device({"fbanks": rng.normal(size=(2, 4, 64, 32)).astype(np.float32),
                                 "emo_id": [1, 2], "a1_id": [3, 4], "a2_id": [5, 6]}, cuda)
-    before = (mha.launches, mha_bwd.launches)
+    before = (mha.launches, mha_bwd.launches, add_layer_norm.launches)
     logs = step(state, batch, ta.step_generator(0, 0, 0, cuda))
     torch.cuda.synchronize()
     k1 = ast_cfg.depth * (2 if remat else 1)
     assert (mha.launches - before[0], mha_bwd.launches - before[1]) == (k1, ast_cfg.depth)
+    assert add_layer_norm.launches == before[2]  # the differentiated path keeps the plain ops
     assert torch.isfinite(logs["total"]) and state.step == 1
 
 
