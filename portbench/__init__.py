@@ -6,10 +6,12 @@ by the name that ``BENCHMARK.json`` gives it:
 
   configs/<config>.json    sizes, types and the kernel sources a config builds
   traffic/<mix>.json       the parameters the one traffic generator reads
-  workloads/<cell>.json    the cell's check (sample, limits) and traced slice
+  workloads/<cell>.json    the cell's check (sample, limits) and traced slice, and
+                           the system that drives it where not the config's
   metrics/<metric>.py      a reader: ``read(ctx) -> float | None``
   reference/<name>.py      the plain float32 reference a config names
 
-Nothing here imports JAX or the JAX package ``amuse_tpu``; ``reference/``
-imports nothing of the program either.
+A cell on several cards runs one process a card (``ranks.py``). Nothing
+here imports JAX or the JAX package ``amuse_tpu``; ``reference/`` imports
+nothing of the program either.
 """

@@ -23,6 +23,12 @@ class Cell:
     end_to_end: list  # the BENCHMARK.json metrics this cell reports, by kind
     per_layer: list
 
+    @property
+    def system(self) -> str:
+        """The module of ``systems/`` that drives the cell: the settings'
+        ``system`` where they name one, else the configuration's."""
+        return self.settings.get("system", self.config["system"])
+
 
 def load_manifest(root: Path) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())

@@ -41,9 +41,10 @@ def infer_mfu_pct(ctx):
 
 def train_mfu_pct(ctx):
     """Model FLOPs of the steps in the window (forward plus twice it for the
-    backward, from shapes) over its length at the bf16 peak."""
+    backward, from shapes; a step's samples are its global batch) over its
+    length at the bf16 peak of the cell's cards."""
     flops = sum(roofline.stage1_step_flops(ctx.cfg, d.request.samples) for d in ctx.window.done)
-    return 100.0 * flops / (_elapsed(ctx) * roofline.PEAK_BF16_FLOPS)
+    return 100.0 * flops / (_elapsed(ctx) * roofline.PEAK_BF16_FLOPS * ctx.chips)
 
 
 def kernels_ms_per_request(ctx, mark: str):

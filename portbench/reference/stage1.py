@@ -21,7 +21,9 @@ on the feature, which the loss does not reach, take no step; every other
 parameter does, with a zero gradient where the loss does not reach it.
 
 The ViT blocks are recomputed in the backward (``torch.utils.checkpoint``)
-so that float32 fits beside nothing else on one card. ``precision="control"``
+so that float32 fits beside nothing else on one card, in blocks of
+``MEMBERS_PER_BLOCK`` members, so that a global batch of several cards'
+steps fits too. ``precision="control"``
 rounds both operands of every product that the configuration runs in bf16
 to fp8 e4m3 (per-tensor scales), in the forward and in the backward's
 products, whose incoming gradient is rounded too. Nothing here imports the
@@ -54,6 +56,9 @@ LEAF_BELOW = 1e-3
 # lr, moves it by rounding alone. The floor also takes the exactly nought
 # gradients of ReLU units that no token of the step reaches.
 ELEMENT_BELOW = 1e-6
+# The members a ViT block takes at once: one stage1.q8 step's (8 quads of 4
+# fbanks), so that a larger batch runs as blocks of that size.
+MEMBERS_PER_BLOCK = 32
 
 
 def _stack_keys(prefix: str, d: int, layers: int, ff: int) -> dict:
@@ -207,6 +212,14 @@ class Stage1:
         h = F.gelu(self._linear(F.layer_norm(x, (e,), n2w, n2b, 1e-6), f1w, f1b))
         return x + self._linear(h, f2w, f2b)
 
+    def _blocks(self, x, w):
+        """One ViT block over the members, recomputed in the backward, in
+        blocks of ``MEMBERS_PER_BLOCK`` members (a block treats each member
+        alone, so only the memory it takes changes)."""
+        parts = [checkpoint(self._block, part, *w, use_reentrant=False)
+                 for part in x.split(MEMBERS_PER_BLOCK)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     def encode(self, P: dict, name: str, spec: torch.Tensor):
         """(N, T, F) -> (feature (N, fd), label logits (N, L) or None)."""
         a, p = self.cfg["ast"], f"{name}_enc."
@@ -223,7 +236,7 @@ class Stage1:
                                      "attn.qkv.bias", "attn.proj.weight", "attn.proj.bias",
                                      "norm2.weight", "norm2.bias", "mlp.fc1.weight",
                                      "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")]
-            x = checkpoint(self._block, x, *w, use_reentrant=False)
+            x = self._blocks(x, w)
         x = F.layer_norm(x, (e,), P[p + "v.norm.weight"], P[p + "v.norm.bias"], 1e-6)
         x_dist = 0.5 * (x[:, 0] + x[:, 1])
         h = F.layer_norm(x[:, 2:].mean(1), (e,), P[p + "feature_head.0.weight"],

@@ -155,6 +155,7 @@ def control_reading(cell, seed: int, device: torch.device) -> dict:
 
 class Session(_session.Session):
     PROGRAM = ("state", "step_fn", "logs")
+    grad_sync = None  # the step's GradSync: one process, none
 
     def __init__(self, cfg: dict, mix: dict, settings: dict, seed: int, device: torch.device):
         from amuse_tpu_torch.models.ast import ASTConfig, ASTDisentangler
@@ -183,11 +184,11 @@ class Session(_session.Session):
             weight_decay=tr["weight_decay"], frame_based_feats=tr["frame_based_feats"],
             freq_mask=tr["freq_mask"], time_mask=tr["time_mask"], noise_aug=tr["noise_aug"])
         self.state = ta.AudioTrainState(model, ta.make_optimizer(model, self.tcfg))
-        self.step_fn, set_lr = ta.make_train_step(self.tcfg)
+        self.step_fn, set_lr = ta.make_train_step(self.tcfg, self.grad_sync)
         set_lr(self.state, 0)
         self._sync()
         self.stages["state_s"], t = time.perf_counter() - t, time.perf_counter()
-        self.pool = make_pool(cfg, self.traffic.pool, seed, device)
+        self.pool = self._make_pool()
         self.stages["data_s"], t = time.perf_counter() - t, time.perf_counter()
         self.first = self._first_steps()
         self.stages["checked_steps_s"], t = time.perf_counter() - t, time.perf_counter()
@@ -195,6 +196,9 @@ class Session(_session.Session):
             self.request(r)
         self._sync()
         self.stages["warmup_s"] = time.perf_counter() - t
+
+    def _make_pool(self) -> dict:
+        return make_pool(self.cfg, self.traffic.pool, self.seed, self.device)
 
     def _first_steps(self) -> dict:
         """The checked steps through ``request``, read as the docstring says."""
@@ -214,8 +218,12 @@ class Session(_session.Session):
         out["after"] = {name: p.detach().to("cpu", copy=True) for name, p in named.items()}
         return out
 
+    def _batch(self, r: Request) -> dict:
+        """The request's rows of the pool that this process trains on."""
+        return rows(self.pool, r.start, r.samples)
+
     def request(self, r: Request) -> Done:
-        batch = rows(self.pool, r.start, r.samples)
+        batch = self._batch(r)
         start = time.perf_counter()
         gen = torch.Generator(device=self.device).manual_seed(r.seed)
         self.logs = self.step_fn(self.state, self.ta.batch_to_device(batch, self.device), gen)

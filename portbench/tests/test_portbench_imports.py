@@ -14,6 +14,7 @@ from portbench.tests.tiny import ROOT
 RUN_MODULES = """
 import glob, importlib, json, os, sys
 import portbench.run, portbench.control, portbench.systems.infer, portbench.systems.stage1
+import portbench.ranks, portbench.systems.stage1_dp
 import portbench.reference.infer, portbench.reference.stage1
 import amuse_tpu_torch.infer.pipeline, amuse_tpu_torch.ops.attention, amuse_tpu_torch.train.audio
 from portbench import manifest

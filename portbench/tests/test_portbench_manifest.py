@@ -3,10 +3,13 @@ new configuration, mix, cell and metric by name with no edit."""
 
 from __future__ import annotations
 
+import importlib
 import json
 import re
 import shutil
 import statistics
+import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -166,3 +169,38 @@ def test_paths_hold_only_the_benchmark(bench):
         assert not p.endswith("_torch") and p.split("/")[0] not in ("amuse_tpu", "tests",
                                                                      "benchmarks")
     assert Path(bench["command"][1]).parts[0] in bench["paths"]
+
+
+def test_a_four_card_cell_loads_and_fewer_cards_are_refused(bench, monkeypatch, capsys):
+    """A cell on four cards is found by name like any other. ``run.py``
+    exits with code 2, and prints no line, where fewer cards are visible:
+    each rank looks for the cards, and the launcher, which imports no
+    torch, exits as its first failing rank."""
+    import torch
+
+    from portbench import run
+
+    four = [w["name"] for w in bench["workloads"] if w["chips"] == 4]
+    assert four
+    monkeypatch.setattr(sys, "pycache_prefix", sys.pycache_prefix)  # main() sets both
+    monkeypatch.setattr(sys, "dont_write_bytecode", sys.dont_write_bytecode)
+    for name in four:
+        cell = manifest.cell(ROOT, name)
+        assert cell.chips == 4 and cell.settings["check"]["limits"]
+        assert callable(importlib.import_module(f"portbench.systems.{cell.system}").Session)
+        argv = ["--workload", name, "--seed", str(2**31 + 7), "--seconds", "1"]
+        with monkeypatch.context() as m:  # a rank of four
+            m.setenv("WORLD_SIZE", "4")
+            for seen in (0, 1, 3):
+                m.setattr(torch.cuda, "is_available", lambda seen=seen: seen > 0)
+                m.setattr(torch.cuda, "device_count", lambda seen=seen: seen)
+                rc = run.main([*argv, "--launched-at", repr(time.perf_counter())])
+                out = capsys.readouterr()
+                assert rc == 2 and out.out == "", (seen, out.out)
+                assert f"needs 4 CUDA card(s); this process sees {seen}" in out.err
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # the launched ranks see no card
+        rc = run.main(argv)
+        out = capsys.readouterr()
+        assert rc == 2 and out.out == "", out.out
+        assert "needs 4 CUDA card(s); this process sees 0" in out.err
+        assert "every rank has ended" in out.err

@@ -1,8 +1,10 @@
 """Each cell's run rehearsed on the CPU at tiny widths: the traffic, the
 window, the traced slice and the check as a run drives them, and the
 contract's last line. Then the same run with the timed path broken
-underneath, in each way that the cell can be broken (no cell runs across
-chips, so none leaves out an exchange): ``correct`` must come out false."""
+underneath, in each way that the cell can be broken: ``correct`` must come
+out false. These are the one-card cells; ``stage1.dp4`` runs across cards,
+and ``test_portbench_ranks.py`` rehearses it as two ranks, the exchange
+between them left out among its faults."""
 
 from __future__ import annotations
 

@@ -20,16 +20,16 @@ WIDTHS = {"infer": {"ast": {**AST, "dtype": "float32"},
           "stage1": {"ast": {**AST, "input_tdim": 64, "input_fdim": 32},
                      "stage1": {"fusion_dim": 32},
                      "train": {"dtype": "float32", "freq_mask": 8, "time_mask": 16}}}
-SIZES = {"infer.b32": [4], "infer.clips": [1, 2, 3], "stage1.q8": [2]}
-POOL = {"infer": 8, "stage1": 8}
+SIZES = {"infer.b32": [4], "infer.clips": [1, 2, 3], "stage1.q8": [2], "stage1.dp4": [4]}
+POOL = {"infer": 8, "stage1": 8, "stage1.dp4": 16}  # by cell, else by system
 
 
 def cell(name: str) -> manifest.Cell:
-    """The cell at tiny widths, with a pool of 8 samples and small requests."""
+    """The cell at tiny widths, with a small pool of samples and small requests."""
     full = manifest.cell(ROOT, name)
     cfg = copy.deepcopy(full.config)
     for part, values in WIDTHS[cfg["system"]].items():
         cfg[part].update(values)
-    mix = dict(full.traffic, pool_samples=POOL[cfg["system"]], warmup_rounds=1,
+    mix = dict(full.traffic, pool_samples=POOL.get(name, POOL[cfg["system"]]), warmup_rounds=1,
                samples_per_request=SIZES[name])
     return dataclasses.replace(full, config=cfg, traffic=mix)

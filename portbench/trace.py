@@ -164,14 +164,16 @@ def short_records(trace: Trace, counted: dict) -> str:
     return "; ".join(short)
 
 
-def traced(work, counts, device, host: bool = False) -> Trace:
+def traced(work, counts, device, host: bool = False, agree=None) -> Trace:
     """``work()`` under the profiler -> its ``Trace``. ``counts()`` returns
     the program's launch counters by kernel family. On a card the device
     alone is recorded, and the slice runs from a marker kernel launched just
     before the work to one launched once it has synchronized; ``host=True``
     records the host's operators too, for naming idle gaps (their recording
     slows the host). On a CPU device (the tests' rehearsal) only the host is
-    recorded, and the slice is the annotation's span."""
+    recorded, and the slice is the annotation's span. Where the work holds
+    collectives, ``agree`` turns this rank's shortfall into every rank's
+    (``ranks.Group.agree``), so that all retry together."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
@@ -212,6 +214,8 @@ def traced(work, counts, device, host: bool = False) -> Trace:
         after = counts()
         trace = box[0]
         short = short_records(trace, {k: after[k] - before[k] for k in after})
+        if agree is not None:
+            short = agree(short)
         if not short:
             return trace
         print(f"profiler: a session came back short: {short}", file=sys.stderr)
